@@ -4,19 +4,31 @@
     python3 chip_smoke.py
 
 Drives the port's device ingress step (SHA-512 -> Ed25519 verify with the
-hand-written verify_core kernel -> aging-bloom dedup -> pack prefilter) at
-deployment size: B = 4096 lanes per batch, 1232-byte messages, the full
-2 x 2^28-bit filter pair resident on the card, K = 1024 pack candidates of
-1024 account bits.  Phases, one JSON line each:
+hand-written verify_core kernel -> aging-bloom dedup -> pack prefilter) and
+its batch (RLC) verify path (verify_batch_digest_rlc: the decompress_niels
+and msm_buckets kernels, the plain finalization, the verify_core subgroup
+gate) at deployment size: B = 4096 lanes per batch, 1232-byte messages, the
+full 2 x 2^28-bit filter pair resident on the card, K = 1024 pack
+candidates of 1024 account bits.  Phases, one JSON line each:
 
-  device    card name, power limit, TF32 switches (both set off)
-  build     every kernel built from csrc/ by utils/kbuild.py, in parallel
-  kernel    verify_core against verify_core_plain on all 4096 lanes
-  slice     several consecutive steps and the pack prefilter, checked
-            against a host model of the dedup rules, the golden oracle on
-            sampled lanes and the host greedy pack oracle; the kernel's
-            launch counter must move
-  times     CUDA-event medians per layer, verifies/s, the kernel's bound
+  device       card name, power limit, TF32 switches (both set off)
+  build        every kernel built from csrc/ by utils/kbuild.py, in parallel
+  kernel       verify_core against verify_core_plain on all 4096 lanes
+  slice        several consecutive steps and the pack prefilter, checked
+               against a host model of the dedup rules, the golden oracle on
+               sampled lanes and the host greedy pack oracle; the kernel's
+               launch counter must move
+  rlc_kernels  decompress_niels and msm_buckets against their plain versions
+               on all 4096 lanes of the first batch; the batch verdict from
+               the kernel's buckets equals the one from the plain buckets
+  rlc          verify_batch_digest_rlc on an honest batch (accepted by the
+               batch equation), the first corpus batch and a batch with the
+               order-2 torsion-cancellation pair planted (rejected by the
+               equation and by the subgroup gate, and decided by the
+               per-signature path); verdicts against
+               the per-signature path, the corpus and the golden oracle;
+               every kernel of the path must launch
+  times        CUDA-event medians per layer, verifies/s, each kernel's bound
 
 then a `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
@@ -44,6 +56,8 @@ N_BATCHES = 4
 N_SIGNERS = 64
 K_PACK, W_PACK = 1024, 16  # scan_limit; 16 u64 words = 1024 account bits
 TXN_LIMIT, CU_LIMIT = 31, 1_500_000
+#: where the torsion-cancellation pair is planted in the honest batch
+TORSION_LANES = (1, B // 2)
 KINDS = ("bad_r", "bad_s", "wrong_key", "bad_msg", "identity_key", "noncanon_y")
 # H100 SXM published rates (NVIDIA's data sheet, 700 W): 3.35 TB/s HBM and
 # 67 TFLOP/s FP32 = 33.5e12 FMA/s; a 32-bit integer multiply-add issues at
@@ -219,6 +233,81 @@ def check_golden(golden, bt, verdicts) -> int:
     return len(sample)
 
 
+def honest_batch(batches):
+    """B lanes of the corpus that verify (every batch's valid lanes, in
+    order), as a batch dict."""
+    keys = ("msgs", "lens", "sigs", "pubs")
+    hb = {k: np.concatenate([bt[k][bt["ok"]] for bt in batches])[:B] for k in keys}
+    if len(hb["lens"]) != B:
+        raise AssertionError("the corpus has fewer than B valid lanes")
+    hb["ok"] = np.ones(B, bool)
+    hb["kind"] = ["valid"] * B
+    return hb
+
+
+def torsion2_pair(golden):
+    """Two signatures with mixed-order R' = R + T2, T2 = (0, -1) of order 2,
+    whose cofactorless residuals are both T2: each fails strict
+    verification, but z1 T2 + z2 T2 = identity for every odd z pair, so the
+    batch equation alone would accept both.  Built from a known secret:
+    R = rB, k hashed over the R' encoding, s = r + k a.  -> (msgs, sigs,
+    pubs) as lists of bytes."""
+    t2 = (0, golden.P - 1)
+    sk = b"\x07" * 32
+    a, prefix = golden.secret_expand(sk)
+    a_enc = golden.public_from_secret(sk)
+    msgs, sigs = [], []
+    for ctr in range(2):
+        m = b"torsion-cancel-%d" % ctr
+        r = golden._sha512_int(prefix, m) % golden.L
+        rs = golden.point_compress(
+            golden.point_add(golden.scalar_mul(r, golden.B), t2))
+        k = golden._sha512_int(rs, a_enc, m) % golden.L
+        msgs.append(m)
+        sigs.append(rs + ((r + k * a) % golden.L).to_bytes(32, "little"))
+    return msgs, sigs, [a_enc, a_enc]
+
+
+def torsion_batch(golden, hb):
+    """The honest batch with the torsion pair planted at TORSION_LANES."""
+    tb = {k: v.copy() for k, v in hb.items() if k != "kind"}
+    tb["kind"] = list(hb["kind"])
+    for lane, m, sig, pub in zip(TORSION_LANES, *torsion2_pair(golden)):
+        tb["msgs"][lane] = 0
+        tb["msgs"][lane, : len(m)] = np.frombuffer(m, np.uint8)
+        tb["lens"][lane] = len(m)
+        tb["sigs"][lane] = np.frombuffer(sig, np.uint8)
+        tb["pubs"][lane] = np.frombuffer(pub, np.uint8)
+        tb["ok"][lane] = False
+        tb["kind"][lane] = "torsion2"
+    return tb
+
+
+def check_golden_lanes(golden, bt, verdicts, lanes) -> int:
+    for i in lanes:
+        g = golden.verify(bt["msgs"][i, : bt["lens"][i]].tobytes(),
+                          bt["sigs"][i].tobytes(), bt["pubs"][i].tobytes())
+        if (g == 0) != bool(bt["ok"][i]) or (g == 0) != bool(verdicts[i]):
+            raise AssertionError(f"lane {i} ({bt['kind'][i]}) vs golden {g}")
+    return len(lanes)
+
+
+def bound(products: int, nbytes: int) -> dict:
+    """The least time of a kernel's work: the larger of its 32x32->64
+    products at the card's integer multiply-add rate and its bytes at the
+    card's memory rate."""
+    ops_ms = products / INT32_MAD_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"int32_multiply_adds": products, "ops_ms": ops_ms,
+            "bytes": nbytes, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def pack_candidates(seed: int):
     rng = np.random.default_rng(seed)
     rw = np.zeros((K_PACK, W_PACK), np.uint64)
@@ -292,7 +381,9 @@ def run(dev) -> dict:
 
     from firedancer_tpu_torch.models import pipeline as PL
     from firedancer_tpu_torch.ops import pack_select
+    from firedancer_tpu_torch.ops.ed25519 import field as F
     from firedancer_tpu_torch.ops.ed25519 import golden
+    from firedancer_tpu_torch.ops.ed25519 import msm as MSM
     from firedancer_tpu_torch.ops.ed25519 import verify as V
     from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
     from firedancer_tpu_torch.utils import kbuild
@@ -393,7 +484,119 @@ def run(dev) -> dict:
           "bloom_bytes_on_card": 2 * bloom.cur.numel() * 4,
           "peak_bytes_on_card": torch.cuda.max_memory_allocated(dev)})
 
-    # -- 5. times -------------------------------------------------------------
+    # -- 5. the RLC kernels against their plain versions --------------------
+    zb = np.random.default_rng(2027).integers(0, 256, (B, 16), np.uint8)
+    zb[:, 0] |= 1  # odd z, as verify_batch_digest_rlc forces it
+    canon = lambda t: F.canonical(t.movedim(-2, 0).reshape(F.NLIMB, -1))  # noqa: E731
+
+    def rlc_inputs(bt):
+        return V.rlc_prologue(put(digests_of(bt)), put(bt["sigs"]),
+                              put(bt["pubs"]), put(zb))
+
+    p0 = rlc_inputs(b0)
+    dn_in = [p0[k] for k in ("a_y", "a_sign", "r_y", "r_sign")]
+    dn_ker = MSM.decompress_niels(*dn_in)
+    dn_plain = MSM.decompress_niels_plain(*dn_in)
+    sync()
+    dn_ok_agree = bool(torch.equal(dn_ker[2], dn_plain[2]))
+    dn_err = max(
+        int((canon(k.reshape(3, F.NLIMB, B)) - canon(q.reshape(3, F.NLIMB, B)))
+            .abs().max()) for k, q in zip(dn_ker[:2], dn_plain[:2]))
+    dn_err = max(dn_err, int((dn_ker[2].int() - dn_plain[2].int()).abs().max()))
+    if not dn_ok_agree or dn_err != 0:
+        raise AssertionError("decompress_niels disagrees with its plain version")
+    slots = MSM.slots_for(B)
+    msm_in = [p0[k] for k in ("cdig", "zdig", "an3", "rn3")]
+    bk_ker = MSM.msm_buckets(*msm_in)
+    bk_plain = MSM.msm_buckets_plain(*msm_in, slots)
+    sync()
+    msm_err = int((canon(bk_ker) - canon(bk_plain)).abs().max())
+    if msm_err != 0:
+        raise AssertionError("msm_buckets disagrees with msm_buckets_plain")
+    hb = honest_batch(batches)
+    ph = rlc_inputs(hb)
+    verdicts_from = {}
+    for name, pp in (("batch0", p0), ("honest", ph)):
+        args = [pp[k] for k in ("cdig", "zdig", "an3", "rn3")]
+        verdicts_from[name] = [
+            bool(MSM.msm_finalize(bk, pp["udig"]))
+            for bk in (MSM.msm_buckets(*args), MSM.msm_buckets_plain(*args, slots))]
+    if verdicts_from != {"batch0": [False, False], "honest": [True, True]}:
+        raise AssertionError(f"msm_check verdicts {verdicts_from}")
+    emit({"phase": "rlc_kernels", "lanes": B, "slots": slots,
+          "decompress_niels": {"ok_agree_all_lanes": dn_ok_agree,
+                               "max_abs_err_canonical": dn_err,
+                               "decompressed": int(dn_ker[2].sum())},
+          "msm_buckets": {"bucket_sets": MSM.NWIN * slots,
+                          "max_abs_err_canonical": msm_err,
+                          "compared": "every bucket coordinate after F.canonical"},
+          "msm_check_verdicts_kernel_vs_plain": verdicts_from})
+
+    # -- 6. the RLC path: three batches, kernel counts from 0 ----------------
+    tb = torsion_batch(golden, hb)
+    cases = [("honest", hb), ("batch0", b0), ("torsion", tb)]
+    per_sig = {name: V.verify_batch_digest(digests_of(bt), bt["sigs"], bt["pubs"],
+                                           device=dev).cpu().numpy()
+               for name, bt in cases}
+    equation = []
+    impl = V._verify_digest_rlc_impl
+
+    def recording_impl(*args, **kw):  # records the batch equation's verdict
+        lane_ok, batch_ok = impl(*args, **kw)
+        equation.append(bool(batch_ok))
+        return lane_ok, batch_ok
+
+    def counts():
+        return dict(MSM.LAUNCHES, verify_core=VC.LAUNCHES)
+
+    V._verify_digest_rlc_impl = recording_impl
+    VC.LAUNCHES = 0
+    for k in MSM.LAUNCHES:
+        MSM.LAUNCHES[k] = 0
+    rlc_out = {}
+    try:
+        for name, bt in cases:
+            before = counts()
+            got = V.verify_batch_digest_rlc(digests_of(bt), bt["sigs"], bt["pubs"],
+                                            zbytes=zb, device=dev).cpu().numpy()
+            after = counts()
+            rlc_out[name] = (got, equation[-1],
+                             {k: after[k] - before[k] for k in after})
+    finally:
+        V._verify_digest_rlc_impl = impl
+    sync()
+    rlc_launches = counts()
+    if min(rlc_launches.values()) < 1:
+        raise AssertionError(f"a kernel of the RLC path did not launch: {rlc_launches}")
+    rlc_report = {}
+    for name, bt in cases:
+        got, batch_ok, launched = rlc_out[name]
+        want_batch_ok = name == "honest"
+        if batch_ok != want_batch_ok:
+            raise AssertionError(f"{name}: batch_ok {batch_ok}")
+        if not np.array_equal(got, bt["ok"]) or not np.array_equal(got, per_sig[name]):
+            raise AssertionError(f"{name}: verdicts differ from the corpus or "
+                                 "the per-signature path")
+        # verify_core: the gate runs only when the equation holds (honest,
+        # torsion); the strict path runs when batch_ok fails (batch0, torsion)
+        want_launched = {"decompress_niels": 1, "msm_buckets": 1,
+                         "verify_core": 2 if name == "torsion" else 1}
+        if launched != want_launched:
+            raise AssertionError(f"{name}: launches {launched}")
+        if name == "torsion":
+            n_golden = check_golden_lanes(golden, bt, got,
+                                          [*TORSION_LANES, 0, B // 3, B - 1])
+        else:
+            n_golden = check_golden(golden, bt, got)
+        rlc_report[name] = {"batch_ok": batch_ok, "accepted": int(got.sum()),
+                            "verdicts_match_per_sig": True,
+                            "verdicts_match_corpus": True,
+                            "golden_lanes_checked": n_golden,
+                            "launches": launched}
+    emit({"phase": "rlc", "lanes": B, "batches": rlc_report,
+          "launches": rlc_launches})
+
+    # -- 7. times -------------------------------------------------------------
     bt = batches[2]
     t = {k: put(bt[k]) for k in ("msgs", "sigs", "pubs")}
     lens_d = put(bt["lens"].astype(np.int64))
@@ -401,6 +604,11 @@ def run(dev) -> dict:
     dig_d = put(digests_of(bt))
     ok_d, *core_d = V.prologue(dig_d, t["sigs"], t["pubs"])
     cur_d, prev_d = PL.fresh_bloom(dev), PL.fresh_bloom(dev)
+    h = {k: put(hb[k]) for k in ("sigs", "pubs")}
+    hdig, hz = put(digests_of(hb)), put(zb)
+    dn_h = [ph[k] for k in ("a_y", "a_sign", "r_y", "r_sign")]
+    msm_h = [ph[k] for k in ("cdig", "zdig", "an3", "rn3")]
+    bk_h = MSM.msm_buckets(*msm_h)
     ms = {
         "sha512": cuda_ms(lambda: V.message_digests(
             t["msgs"], lens_d, t["sigs"], t["pubs"]), reps=5),
@@ -419,34 +627,58 @@ def run(dev) -> dict:
         "step": cuda_ms(lambda: step(
             t["msgs"], lens_d, t["sigs"], t["pubs"], tags_d, cur_d, prev_d),
             reps=3),
+        # the RLC path, on the honest batch (the accept branch)
+        "rlc_prologue": cuda_ms(lambda: V.rlc_prologue(
+            hdig, h["sigs"], h["pubs"], hz), reps=5),
+        "decompress_niels": cuda_ms(lambda: MSM.decompress_niels(*dn_h), reps=20),
+        "decompress_niels_plain": cuda_ms(
+            lambda: MSM.decompress_niels_plain(*dn_h), reps=3),
+        "msm_buckets": cuda_ms(lambda: MSM.msm_buckets(*msm_h), reps=20),
+        "msm_buckets_plain": cuda_ms(
+            lambda: MSM.msm_buckets_plain(*msm_h, slots), reps=3),
+        "msm_finalize": cuda_ms(lambda: MSM.msm_finalize(bk_h, ph["udig"]), reps=3),
+        "rlc_gate": cuda_ms(lambda: V._torsion_free_pair(*dn_h), reps=10),
+        "verify_batch_digest_rlc": cuda_ms(lambda: V.verify_batch_digest_rlc(
+            hdig, h["sigs"], h["pubs"], hz, device=dev), reps=3),
+        "verify_batch_digest_honest": cuda_ms(lambda: V.verify_batch_digest(
+            hdig, h["sigs"], h["pubs"], device=dev), reps=5),
     }
-    products = VC.products_per_lane() * B
-    kernel_bytes = sum(x.numel() * x.element_size() for x in core_d) + B
-    kernel_bytes += VC.kernel_consts().nbytes
-    ops_ms = products / INT32_MAD_PER_S * 1e3
-    bytes_ms = kernel_bytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    vc_bound = bound(VC.products_per_lane() * B,
+                     nbytes(*core_d) + B + VC.kernel_consts().nbytes)
+    dn_bound = bound(MSM.decompress_niels_products_per_lane() * B,
+                     nbytes(*dn_h, *dn_ker) + VC.kernel_consts().nbytes)
+    msm_bound = bound(MSM.msm_products(ph["cdig"], ph["zdig"]),
+                      nbytes(*msm_h, bk_h))
+    bounds = {"verify_core": vc_bound, "decompress_niels": dn_bound,
+              "msm_buckets": msm_bound}
+    for name, bd in bounds.items():
+        bd["bound_share"] = bd["bound_ms"] / ms[name]
     emit({"phase": "times", "lanes": B, "ms": ms,
           "verifies_per_s": {
               "verify_batch_digest": B / ms["verify_batch_digest"] * 1e3,
-              "verify_batch": B / ms["verify_batch"] * 1e3},
-          "verify_core_bound": {
-              "int32_multiply_adds": products, "ops_ms": ops_ms,
-              "bytes": kernel_bytes, "bytes_ms": bytes_ms,
-              "bound_ms": bound_ms,
-              "bound_share": bound_ms / ms["verify_core"]},
+              "verify_batch": B / ms["verify_batch"] * 1e3,
+              "verify_batch_digest_rlc": B / ms["verify_batch_digest_rlc"] * 1e3,
+              "verify_batch_digest_honest":
+                  B / ms["verify_batch_digest_honest"] * 1e3},
+          "bounds": bounds,
           "card": smi, "seconds_total": time.time() - t_start})
 
+    src = "firedancer_tpu_torch/csrc/"
+    tpu = "firedancer_tpu/ops/ed25519/"
+    rows = [
+        ("verify_core", "verify_core.cu", "pallas_kernel.py:70", launches, max_abs_err),
+        ("decompress_niels", "decompress_niels.cu", "msm_kernel.py:119",
+         rlc_launches["decompress_niels"], dn_err),
+        ("msm_buckets", "msm.cu", "msm_kernel.py:178",
+         rlc_launches["msm_buckets"], msm_err),
+    ]
     emit({"kernels": [{
-        "name": "verify_core", "route": "cuda",
-        "source": "firedancer_tpu_torch/csrc/verify_core.cu",
-        "replaces": "firedancer_tpu/ops/ed25519/pallas_kernel.py:70",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": ms["verify_core"], "plain_ms": ms["verify_core_plain"],
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "name": name, "route": "cuda", "source": src + file,
+        "replaces": tpu + where, "launches": n, "max_abs_err": err,
+        "ms": ms[name], "plain_ms": ms[name + "_plain"],
+        "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
         "library_ms": None,
-    }]})
+    } for name, file, where, n, err in rows]})
     print(nvidia_smi_line(), flush=True)
     return {"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),

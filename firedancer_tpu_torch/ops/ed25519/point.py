@@ -82,6 +82,18 @@ def to_niels(p):
     )
 
 
+def to_niels_affine(p):
+    """Extended point with Z == 1 (a decompress output) ->
+    (y+x, y-x, 2dxy) affine niels, all carried."""
+    x, y, _, t = p
+    return (F.carry(y + x), F.carry(y - x), F.mul_rr(t, F.c("D2", t.device)))
+
+
+def identity_niels_affine(batch: int, device):
+    one = F.c("ONE", device).expand(F.NLIMB, batch).contiguous()
+    return (one, one, torch.zeros_like(one))
+
+
 def identity_niels(batch: int, device):
     one = F.c("ONE", device).expand(F.NLIMB, batch).contiguous()
     return (one, one, torch.zeros_like(one), one + one)
@@ -165,6 +177,27 @@ def decompress(b):
     """(B, 32) uint8 -> (point, ok).  See decompress_limbs for rules."""
     y, sign = decompress_bytes(b)
     return decompress_limbs(y, sign)
+
+
+def compress(p):
+    """Point -> (B, 32) uint8 canonical encoding (via one inversion)."""
+    x, y, z, _ = p
+    zinv = F.invert(F.carry1(z))
+    xa = F.canonical(F.mul_rr(F.carry1(x), zinv))
+    yb = F.to_bytes(F.mul_rr(F.carry1(y), zinv))
+    yb[:, 31] |= ((xa[0] & 1) << 7).to(torch.uint8)
+    return yb
+
+
+def eq_points(p, q):
+    """General projective equality: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1."""
+    x1, y1, z1, _ = p
+    x2, y2, z2, _ = q
+    z1c = F.carry1(z1)
+    z2c = F.carry1(z2)
+    return F.eq(F.mul_rr(F.carry1(x1), z2c), F.mul_rr(F.carry1(x2), z1c)) & (
+        F.eq(F.mul_rr(F.carry1(y1), z2c), F.mul_rr(F.carry1(y2), z1c))
+    )
 
 
 def eq_external(acc, r):
@@ -254,6 +287,24 @@ def lookup9_affine(table, digit):
         torch.where(neg, ypx, ymx),
         torch.where(neg, -t2d, t2d),
     )
+
+
+def scalar_mul_base(s_digits):
+    """[s]B from (64, B) signed digits: fixed-base Strauss over the shared
+    affine B table.  The [u]B term of batch (RLC) verification, where B is
+    1; a Python loop of 64 steps."""
+    batch = s_digits.shape[-1]
+    b_table = F.c("B_TABLE9", s_digits.device)
+    acc = identity(batch, s_digits.device)
+    for idx in range(63, -1, -1):
+        acc = double(acc, with_t=False)
+        acc = double(acc, with_t=False)
+        acc = double(acc, with_t=False)
+        acc = double(acc, with_t=True)
+        acc = add_niels_affine(
+            acc, lookup9_affine(b_table, s_digits[idx]), with_t=True
+        )
+    return acc
 
 
 def double_scalar_mul(k_digits, neg_a_table9, s_digits):

@@ -1,8 +1,9 @@
 """Arithmetic mod the Ed25519 group order L, batch-last int32 limbs.
 
-The plain PyTorch counterpart of firedancer_tpu/ops/ed25519/scalar.py (the
-per-signature verify subset: `from_bytes`, `is_canonical`, `reduce512`,
-`to_signed_digits`), in the same radix-2^13 / 20-limb layout.  L = 2^252 + c
+The plain PyTorch counterpart of firedancer_tpu/ops/ed25519/scalar.py
+(`from_bytes`, `is_canonical`, `reduce512`, `to_signed_digits`, and the
+batch-verification prologue's `mulmod` and `summod`), in the same
+radix-2^13 / 20-limb layout.  L = 2^252 + c
 with c ~ 2^125; the 512-bit reduction folds high limbs through a table of
 2^(13*i) mod L.
 """
@@ -85,6 +86,43 @@ def reduce512(digest):
     This is the `k = SHA512(R||A||M) mod L` step of verify."""
     # 40 limbs cover 520 >= 512 bits
     return _reduce_wide(F.bytes_to_limbs(digest, 2 * NLIMB))
+
+
+def mulmod(a, b):
+    """(na, B) x (nb, B) 13-bit limb scalars -> a*b mod L, canonical.
+
+    Exactness: schoolbook columns accumulate min(na, nb) products of
+    13-bit limbs, so min(na, nb) <= 20 keeps every column < 20 * 2^26
+    < 2^31 (int32 exact); na + nb <= 40 keeps the rippled product inside
+    _reduce_wide's 41-limb fold table.  Used by the batch-verification
+    prologue for z*k and z*s (z is a 128-bit = 10-limb random scalar)."""
+    na, nb = a.shape[0], b.shape[0]
+    a, b = torch.broadcast_tensors(a[:, None], b[None, :])
+    cols = torch.zeros((na + nb - 1,) + a.shape[2:], dtype=torch.int32,
+                       device=a.device)
+    for i in range(na):
+        cols[i : i + nb] += a[i] * b[i]
+    v, co = _ripple(cols)  # co < 2^13 (product < 2^(13*(na+nb)))
+    return _reduce_wide(torch.cat([v, co], dim=0))
+
+
+def summod(x):
+    """(NLIMB, B) 13-bit limb scalars -> sum mod L as (NLIMB, 1).
+
+    Pairwise tree: each level adds halves and ripples; carries past limb
+    19 (values >= 2^260) fold back through _R_POW so limbs stay 13-bit
+    and the running value stays < 2^254 at every level."""
+    n = x.shape[-1]
+    p2 = 1 << max(0, (n - 1).bit_length())
+    if p2 != n:
+        x = torch.cat([x, torch.zeros_like(x[:, :1]).expand(-1, p2 - n)], dim=-1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        v, co = _ripple(x[:, :half] + x[:, half:])
+        x = _fold_once(v, co)
+        x, co = _ripple(x)  # _fold_once leaves limbs up to ~2^26: renorm
+        x = _fold_once(x, co)  # the carry past limb 19, folded back mod L
+    return _reduce_wide(x)
 
 
 def to_nibbles(s):

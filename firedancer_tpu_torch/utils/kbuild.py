@@ -7,8 +7,8 @@ into its own shared library with a plain C interface, loaded with ctypes.
 Build happens at first use (`load(name)`) or all at once (`build_all()`, one
 nvcc per source, all started together).  Outputs go to
 firedancer_tpu_torch/_build/ (git-ignored), keyed on a hash of the source
-text and the flags, so an edited source rebuilds and an unchanged one is
-reused.  The ptxas report (registers, spills, stack per kernel) is kept
+text, of every shared header (csrc/*.cuh) and of the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  The ptxas report (registers, spills, stack per kernel) is kept
 beside each library as lib<name>.log (`build_log(name)`).  A build that
 fails raises; there is no fallback.
 """
@@ -52,6 +52,8 @@ def sources() -> list:
 
 def _out_dir(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(f"\0{hdr.name}\0".encode() + hdr.read_bytes())
     h.update("\0".join(FLAGS).encode())
     return BUILD / h.hexdigest()[:16]
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and slice on the card, held against the plain
+"""The port's CUDA kernels and slices on the card, held against the plain
 versions on the CPU.  Every test here needs a CUDA card and skips without
 one; the file imports neither jax nor the JAX package, so it runs on a host
 that has only PyTorch:
@@ -6,7 +6,8 @@ that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 
 (`--noconftest`: tests/conftest.py sets up JAX for the rest of the suite).
-Results are bools and integers: every comparison is exact."""
+Results are bools, integers and canonical field elements: every comparison
+is exact."""
 
 import hashlib
 
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 from firedancer_tpu_torch.models import pipeline as PL
+from firedancer_tpu_torch.ops.ed25519 import field as F
 from firedancer_tpu_torch.ops.ed25519 import golden, hostpath
+from firedancer_tpu_torch.ops.ed25519 import msm as MSM
 from firedancer_tpu_torch.ops.ed25519 import verify as V
 from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
 from firedancer_tpu_torch.utils import kbuild
@@ -89,9 +92,11 @@ def _core_inputs(n: int):
 
 
 def test_kernel_builds(dev):
-    assert kbuild.build_all() == ["verify_core"]
-    assert kbuild.library_path("verify_core").exists()
-    assert "registers" in kbuild.build_log("verify_core")
+    names = ["decompress_niels", "msm", "verify_core"]
+    assert kbuild.build_all() == names
+    for name in names:
+        assert kbuild.library_path(name).exists()
+        assert "registers" in kbuild.build_log(name)
 
 
 @pytest.mark.parametrize("n", [13, 300])  # 300: a ragged last block
@@ -171,3 +176,113 @@ def test_step_on_card_matches_cpu(dev):
     np.testing.assert_array_equal(prev_g, prev_c)
     assert (ins_g, rot_g) == (ins_c, rot_c) and rot_g == 1
     assert res_g[0][0].any() and not res_g[1][0].any()
+
+
+# ---------------------------------------------------------------------------
+# the RLC path: decompress_niels, msm_buckets, verify_batch_digest_rlc
+# ---------------------------------------------------------------------------
+
+
+def _canon(t):
+    """Every field element of a limb array whose limb axis is -2, canonical."""
+    return F.canonical(t.movedim(-2, 0).reshape(20, -1).cpu())
+
+
+def _niels_in(n: int):
+    return _core_inputs(n)[2:]
+
+
+@pytest.mark.parametrize("n", [13, 300])
+def test_decompress_niels_kernel_matches_plain(dev, n):
+    args = _niels_in(n)
+    want = MSM.decompress_niels_plain(*args)
+    launches = MSM.LAUNCHES["decompress_niels"]
+    got = MSM.decompress_niels(*(t.to(dev) for t in args))
+    torch.cuda.synchronize()
+    assert MSM.LAUNCHES["decompress_niels"] == launches + 1
+    assert got[2].dtype == torch.bool and torch.equal(got[2].cpu(), want[2])
+    for g, w in zip(got[:2], want[:2]):
+        assert g.device.type == "cuda" and tuple(g.shape) == (60, n)
+        assert int(g.min()) >= 0 and int(g.max()) < 1 << 13
+        assert torch.equal(_canon(g.reshape(3, 20, n)), _canon(w.reshape(3, 20, n)))
+
+
+def test_decompress_niels_kernel_random_lanes(dev):
+    rng = np.random.default_rng(43)
+    n = 200
+    ys = rng.integers(0, 1 << 13, (2, 20, n)).astype(np.int32)
+    ys[:, 19] &= 0xFF
+    signs = rng.integers(0, 2, (2, 1, n)).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (ys[0], signs[0], ys[1], signs[1])]
+    want = MSM.decompress_niels_plain(*args)
+    got = MSM.decompress_niels(*(a.to(dev) for a in args))
+    assert torch.equal(got[2].cpu(), want[2])
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(_canon(g.reshape(3, 20, n)), _canon(w.reshape(3, 20, n)))
+
+
+def _msm_in(n: int):
+    """Digits of the corpus's k and s (as c and z) and masked niels."""
+    k, s, a_y, a_sign, r_y, r_sign = _core_inputs(n)
+    an3, rn3, ok = MSM.decompress_niels_plain(a_y, a_sign, r_y, r_sign)
+    ident = torch.cat(MSM.PT.identity_niels_affine(n, "cpu"))
+    okm = ok[None, :]
+    cdig = torch.where(okm, k, 0)
+    zdig = torch.where(okm, s[: MSM.ZWIN], 0)
+    return [cdig, zdig, torch.where(okm, an3, ident), torch.where(okm, rn3, ident)]
+
+
+@pytest.mark.parametrize("n,slots", [(13, 4), (13, 16), (300, 32), (300, 256)])
+def test_msm_kernel_matches_plain(dev, n, slots):
+    args = _msm_in(n)
+    want = MSM.msm_buckets_plain(*args, slots)
+    launches = MSM.LAUNCHES["msm_buckets"]
+    got = MSM.msm_buckets(*(t.to(dev) for t in args), slots=slots)
+    torch.cuda.synchronize()
+    assert MSM.LAUNCHES["msm_buckets"] == launches + 1
+    assert tuple(got.shape) == (MSM.NWIN, MSM.NBUCKET, 4, 20, slots)
+    assert int(got.min()) >= 0 and int(got.max()) < 1 << 13
+    assert torch.equal(_canon(got), _canon(want))
+
+
+def test_rlc_kernel_wrappers_reject_bad_inputs(dev):
+    nin = [t.to(dev) for t in _niels_in(13)]
+    min_ = [t.to(dev) for t in _msm_in(13)]
+    before = dict(MSM.LAUNCHES)
+    with pytest.raises(TypeError, match="int32"):
+        MSM.decompress_niels(nin[0].long(), *nin[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        MSM.decompress_niels(nin[0].T.contiguous().T, *nin[1:])
+    with pytest.raises(ValueError, match="expected"):
+        MSM.decompress_niels(*nin[:3], nin[3].cpu())
+    with pytest.raises(ValueError, match="shape"):
+        MSM.msm_buckets(min_[0], min_[1][:32], *min_[2:])
+    with pytest.raises(ValueError, match="shape"):
+        MSM.msm_buckets(min_[0][:, :12].contiguous(), *min_[1:])
+    with pytest.raises(ValueError, match="power of two"):
+        MSM.msm_buckets(*min_, slots=24)
+    assert MSM.LAUNCHES == before
+
+
+def test_rlc_on_card_matches_cpu(dev):
+    msgs, lens, sigs, pubs, want = _corpus(40)
+    dig = V.message_digests(
+        torch.from_numpy(msgs), torch.from_numpy(lens).long(),
+        torch.from_numpy(sigs), torch.from_numpy(pubs)).numpy()
+    zb = np.random.default_rng(5).integers(0, 256, (40, 16), np.uint8)
+    got = V.verify_batch_digest_rlc(dig, sigs, pubs, zb)  # device=None: the card
+    assert got.device.type == "cuda"
+    cpu = V.verify_batch_digest_rlc(dig, sigs, pubs, zb, device="cpu")
+    np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+    np.testing.assert_array_equal(cpu.numpy(), want)
+    # the genuine lanes alone: accepted by the batch equation, through all
+    # three kernels (verify_core once, for the subgroup gate)
+    good = np.flatnonzero(want)
+    before = dict(MSM.LAUNCHES, verify_core=VC.LAUNCHES)
+    lane_ok, batch_ok = V._verify_digest_rlc_impl(*(
+        torch.from_numpy(np.ascontiguousarray(a[good])).to(dev)
+        for a in (dig, sigs, pubs, zb)))
+    assert bool(batch_ok) and bool(lane_ok.all())
+    after = dict(MSM.LAUNCHES, verify_core=VC.LAUNCHES)
+    assert {k: after[k] - before[k] for k in after} == {
+        "decompress_niels": 1, "msm_buckets": 1, "verify_core": 1}

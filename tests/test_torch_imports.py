@@ -37,7 +37,7 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_has_files():
     names = {p.name for p in PORT_FILES}
-    for want in ("chip_smoke.py", "verify_core.py", "pipeline.py", "kbuild.py"):
+    for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py"):
         assert want in names
 
 
@@ -54,6 +54,8 @@ def _entry_calls():
         "verify_batch_digest": lambda: V.verify_batch_digest(
             z((2, 64), np.uint8), z((2, 64), np.uint8), z((2, 32), np.uint8)),
         "verify_batch_digest_on": lambda: V.verify_batch_digest_on(None),
+        "verify_batch_digest_rlc": lambda: V.verify_batch_digest_rlc(
+            z((2, 64), np.uint8), z((2, 64), np.uint8), z((2, 32), np.uint8)),
         "make_step": lambda: PL.make_step(),
         "AgingBloom": lambda: PL.AgingBloom(),
         "fresh_bloom": lambda: PL.fresh_bloom(),
@@ -66,6 +68,7 @@ def _entry_calls():
 ENTRY_POINTS = [
     "AgingBloom", "fresh_bloom", "make_step", "select_noconflict",
     "verify_batch", "verify_batch_digest", "verify_batch_digest_on",
+    "verify_batch_digest_rlc",
 ]
 
 

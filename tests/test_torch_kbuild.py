@@ -1,6 +1,7 @@
 """utils/kbuild.py with a stand-in nvcc (a script that writes its -o file
 and a ptxas-style line): every source builds, an unchanged source is
-reused, an edited one rebuilds, and a failed build raises with its log."""
+reused, an edited source or shared header rebuilds, and a failed build
+raises with its log."""
 
 import os
 import stat
@@ -65,3 +66,21 @@ def test_failed_build_raises_and_leaves_no_library(fake):
         kbuild.build_all()
     assert not kbuild.library_path("bad").exists()
     assert list(kbuild.library_path("bad").parent.iterdir()) == []
+
+
+def test_edited_header_rebuilds_every_source(fake):
+    csrc, calls = fake
+    (csrc / "shared.cuh").write_text("// v1")
+    (csrc / "a.cu").write_text('#include "shared.cuh"')
+    (csrc / "b.cu").write_text('#include "shared.cuh"')
+    kbuild.build_all()
+    before = {n: kbuild.library_path(n) for n in ("a", "b")}
+    (csrc / "shared.cuh").write_text("// v2")
+    assert not any(kbuild.library_path(n).exists() for n in ("a", "b"))
+    kbuild.build_all()
+    for n in ("a", "b"):
+        assert kbuild.library_path(n) != before[n]
+        assert kbuild.library_path(n).exists()
+    assert sorted(calls.read_text().split()) == ["a", "a", "b", "b"]
+    (csrc / "other.cuh").write_text("// a new header")
+    assert not kbuild.library_path("a").exists()
