@@ -12,7 +12,13 @@ full 2 x 2^28-bit filter pair resident on the card, K = 1024 pack
 candidates of 1024 account bits.  Phases, one JSON line each:
 
   device       card name, power limit, TF32 switches (both set off)
-  build        every kernel built from csrc/ by utils/kbuild.py, in parallel
+  build        every kernel built from csrc/ by utils/kbuild.py, in parallel;
+               ptxas's registers, shared memory, stack frame and spills per
+               kernel
+  sass         the multiply instructions of one fe_mul and one fe_sq in
+               their SASS (cuobjdump -sass of csrc/probe/fe_probe.cu), the
+               card's measured issue rate of IMAD.WIDE and of IMAD, and the
+               cycles of one dependent fe_sq and fe_mul on one warp
   kernel       verify_core against verify_core_plain on all 4096 lanes
   slice        several consecutive steps and the pack prefilter, checked
                against a host model of the dedup rules, the golden oracle on
@@ -29,6 +35,9 @@ candidates of 1024 account bits.  Phases, one JSON line each:
                the per-signature path, the corpus and the golden oracle;
                every kernel of the path must launch
   times        CUDA-event medians per layer, verifies/s, each kernel's bound
+  lanes_sweep  verify_core at B = 4096, 8192, 16384 and decompress_niels at
+               4096, 8192 (the batch tiled), each beside its bound: time
+               grows about linearly with B once the card is full
 
 then a `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
@@ -41,6 +50,7 @@ import hashlib
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,11 +70,16 @@ TXN_LIMIT, CU_LIMIT = 31, 1_500_000
 TORSION_LANES = (1, B // 2)
 KINDS = ("bad_r", "bad_s", "wrong_key", "bad_msg", "identity_key", "noncanon_y")
 # H100 SXM published rates (NVIDIA's data sheet, 700 W): 3.35 TB/s HBM and
-# 67 TFLOP/s FP32 = 33.5e12 FMA/s; a 32-bit integer multiply-add issues at
-# half the FP32 FMA rate on compute capability 9.0 (the throughput table
-# of NVIDIA's CUDA C++ Programming Guide)
+# 67 TFLOP/s FP32 = 33.5e12 FMA/s; a 32-bit integer multiply-add (IMAD)
+# issues at half the FP32 FMA rate on compute capability 9.0 (the
+# throughput table of NVIDIA's CUDA C++ Programming Guide)
 HBM_BYTES_PER_S = 3.35e12
 INT32_MAD_PER_S = 67e12 / 2 / 2
+# A 32x32->64 multiply-add (IMAD.WIDE, one limb product of the kernels)
+# issues at half the IMAD rate: the sass phase's rate probe measures
+# 6.5e12 IMAD.WIDE/s against 15.7e12 IMAD/s on an H100 at 700 W.  The
+# bounds count limb products at this rate.
+WIDE_MAD_PER_S = INT32_MAD_PER_S / 2
 
 
 def layout():
@@ -294,9 +309,9 @@ def check_golden_lanes(golden, bt, verdicts, lanes) -> int:
 
 def bound(products: int, nbytes: int) -> dict:
     """The least time of a kernel's work: the larger of its 32x32->64
-    products at the card's integer multiply-add rate and its bytes at the
-    card's memory rate."""
-    ops_ms = products / INT32_MAD_PER_S * 1e3
+    products at the card's IMAD.WIDE rate and its bytes at the card's
+    memory rate."""
+    ops_ms = products / WIDE_MAD_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"int32_multiply_adds": products, "ops_ms": ops_ms,
             "bytes": nbytes, "bytes_ms": bytes_ms,
@@ -306,6 +321,88 @@ def bound(products: int, nbytes: int) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _kernel_name(sym: str) -> str:
+    """`verify_core_kernel` of an Itanium-mangled `_Z18verify_core_kernelPKi...`
+    (an extern "C" name as it is)."""
+    m = re.match(r"_Z(\d+)", sym)
+    return sym[m.end(): m.end() + int(m.group(1))] if m else sym
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel of a -Xptxas -v log: registers, shared memory, stack
+    frame and spill bytes."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = out.setdefault(_kernel_name(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_counts(sass: str, function: str) -> dict:
+    """Opcode counts of one function's SASS (cuobjdump -sass): every IMAD
+    form by its full mnemonic, and the instruction total."""
+    body = sass.split(f"Function : {function}\n", 1)[1].split("Function : ", 1)[0]
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+    counts = {op: ops.count(op) for op in sorted(set(ops)) if op.startswith("IMAD")}
+    counts["instructions"] = len(ops)
+    return counts
+
+
+def probe_rates(dev) -> dict:
+    """Multiply-adds per second of the whole card, IMAD.WIDE and IMAD, from
+    csrc/probe/fe_probe.cu's rate kernel (132 x 16 blocks of 256 threads, 8
+    independent chains of 2048 multiply-adds per thread), and the cycles
+    of one dependent fe_sq and fe_mul (one warp, chains of 4096)."""
+    import ctypes
+
+    import torch
+
+    from firedancer_tpu_torch.utils import kbuild
+
+    fn = kbuild.load("probe/fe_probe").fdt_probe_rate_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    blocks, threads, iters, chains = 132 * 16, 256, 2048, 8
+    src = torch.arange(1, 65, dtype=torch.int32, device=dev)
+    out = torch.empty(blocks * threads, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {}
+    for name, wide in (("imad_wide", 1), ("imad", 0)):
+        def launch():
+            if fn(wide, src.data_ptr(), out.data_ptr(), iters, blocks, threads, stream):
+                raise RuntimeError("probe launch failed")
+        ms = cuda_ms(launch, reps=5)
+        rates[name + "_per_s"] = blocks * threads * chains * iters / (ms * 1e-3)
+    # one warp, a chain of dependent products: cycles per product
+    lat = kbuild.load("probe/fe_probe").fdt_probe_latency_launch
+    lat.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lat.restype = ctypes.c_int
+    elems = torch.randint(-(1 << 25), 1 << 25, (640,), dtype=torch.int32, device=dev)
+    res = torch.empty(320, dtype=torch.int32, device=dev)
+    cyc = torch.empty(32, dtype=torch.int64, device=dev)
+    n = 4096
+    for name, kind in (("fe_sq", 0), ("fe_mul", 1)):
+        if lat(elems.data_ptr(), res.data_ptr(), cyc.data_ptr(), n, kind, stream):
+            raise RuntimeError("probe launch failed")
+        sync()
+        rates[name + "_dependent_cycles"] = int(cyc.max()) / n
+    return rates
 
 
 def pack_candidates(seed: int):
@@ -411,7 +508,17 @@ def run(dev) -> dict:
         for n in names
     }
     emit({"phase": "build", "kernels": names, "seconds": build_s,
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "ptxas_summary": {n: ptxas_summary(kbuild.build_log(n)) for n in names}})
+
+    # -- sass: the field products' multiply instructions, the card's rate ---
+    probe_sass = kbuild.sass("probe/fe_probe")
+    emit({"phase": "sass",
+          "fe_mul": sass_counts(probe_sass, "fdt_probe_fe_mul"),
+          "fe_sq": sass_counts(probe_sass, "fdt_probe_fe_sq"),
+          "rate_kernel_imad_wide": sass_counts(probe_sass, "fdt_probe_imad_wide"),
+          "measured": probe_rates(dev), "assumed_int32_mad_per_s": INT32_MAD_PER_S,
+          "assumed_wide_mad_per_s": WIDE_MAD_PER_S})
 
     # -- corpus -------------------------------------------------------------
     t0 = time.time()
@@ -649,6 +756,8 @@ def run(dev) -> dict:
                      nbytes(*dn_h, *dn_ker) + VC.kernel_consts().nbytes)
     msm_bound = bound(MSM.msm_products(ph["cdig"], ph["zdig"]),
                       nbytes(*msm_h, bk_h))
+    # what the team kernel runs: more products than the function needs
+    vc_bound["kernel_int32_multiply_adds"] = VC.kernel_products_per_lane() * B
     bounds = {"verify_core": vc_bound, "decompress_niels": dn_bound,
               "msm_buckets": msm_bound}
     for name, bd in bounds.items():
@@ -662,6 +771,26 @@ def run(dev) -> dict:
                   B / ms["verify_batch_digest_honest"] * 1e3},
           "bounds": bounds,
           "card": smi, "seconds_total": time.time() - t_start})
+
+    # -- 8. lanes sweep: is the card full? ----------------------------------
+    tile = lambda ts, n: [t.repeat(1, n // B).contiguous() for t in ts]  # noqa: E731
+    sweep = {"verify_core": {}, "decompress_niels": {}}
+    for lanes in (B, 2 * B, 4 * B):
+        ins = tile(core_d, lanes)
+        t_ms = cuda_ms(lambda: VC.verify_core(*ins), reps=20)
+        bd = bound(VC.products_per_lane() * lanes,
+                   nbytes(*ins) + lanes + VC.kernel_consts().nbytes)
+        sweep["verify_core"][lanes] = {"ms": t_ms, "bound_ms": bd["bound_ms"],
+                                       "bound_share": bd["bound_ms"] / t_ms}
+    for lanes in (B, 2 * B):
+        ins = tile(dn_h, lanes)
+        t_ms = cuda_ms(lambda: MSM.decompress_niels(*ins), reps=20)
+        bd = bound(MSM.decompress_niels_products_per_lane() * lanes,
+                   nbytes(*ins) + 2 * 60 * 4 * lanes + lanes
+                   + VC.kernel_consts().nbytes)
+        sweep["decompress_niels"][lanes] = {"ms": t_ms, "bound_ms": bd["bound_ms"],
+                                            "bound_share": bd["bound_ms"] / t_ms}
+    emit({"phase": "lanes_sweep", "sweep": sweep, "card": smi})
 
     src = "firedancer_tpu_torch/csrc/"
     tpu = "firedancer_tpu/ops/ed25519/"

@@ -15,27 +15,34 @@
 // coordinates, 20 canonical radix-2^13 limbs each (in [0, 2^13), so inside
 // field.py's LOOSE_MAX input contract), and ok (B,) bytes.
 //
-// Design: one thread per lane, 32 lanes per block, a 1-D grid over B with
-// the ragged edge masked.  Nothing carries between lanes.  The field
-// constants (D, 2D, sqrt(-1)) are staged in shared memory from the
-// verify_core constant block.
-//
 // What bounds it: 32-bit integer multiply-add issue.  Per lane the function
 // needs 510 squarings and 42 multiplications (two decompressions of (255,
 // 20), and one multiplication by 2d per point; msm.py's
-// DECOMPRESS_NIELS_OPS), 32,250 32x32->64 products at 55 per
-// squaring and 100 per multiplication: about 7.9 us for B = 4096 at the
-// card's 16.75e12 integer multiply-adds per second.  The simple design does
-// nothing about that yet: squarings run through fe_mul, and 128 one-warp
-// blocks at B = 4096 leave the multiply pipes waiting on dependent chains.
+// DECOMPRESS_NIELS_OPS), 32,250 32x32->64 products at 55 per squaring and
+// 100 per multiplication: about 15.8 us for B = 4096 at the card's 8.4e12
+// 32x32->64 multiply-adds (IMAD.WIDE) per second, half its 32-bit IMAD rate
+// (chip_smoke.py's sass phase measures both).
 //
-// Compiled without __CUDACC__ (plain C++), the lane function builds a host
+// Design, and what it does about that bound: each point's sqrt chain
+// (fe_pow_p58) is some 265 dependent field operations, so the chain's
+// latency, not the card's multiply rate, sets the time while few threads
+// run.  One thread per point: a block of 64 threads takes 32 lanes, its
+// first warp decompressing their A and its second their R at the same time
+// (8192 threads at B = 4096, where one thread per lane ran A, then R).  The
+// two halves meet in shared memory for the ok byte.  The shared
+// ge_decompress squares with fe_sq (55 products) and inlines every product,
+// each limb product one mad.wide.s32 (ed25519.cuh).  The field constants (D, 2D, sqrt(-1)) are staged in
+// shared memory from the verify_core constant block; the ragged edge is
+// masked.
+//
+// Compiled without __CUDACC__ (plain C++), the point function builds a host
 // library (fdt_decompress_niels_host) that the CPU tests hold against the
 // plain PyTorch version.
 
 #include "ed25519.cuh"
 
 #define DN_LANES_PER_BLOCK 32
+#define DN_THREADS (2 * DN_LANES_PER_BLOCK)  // warp 0: A, warp 1: R
 #define DN_CONSTS 30  // D, 2D, sqrt(-1) of the verify_core block
 
 // One point: decompress (y, sign) of `lane`, write its affine niels limbs.
@@ -51,18 +58,9 @@ FDT_FN bool niels_point(const int32_t* cst, const int32_t* y,
   return ok;
 }
 
-FDT_FN uint8_t niels_lane(const int32_t* cst, const int32_t* ay,
-                          const int32_t* asg, const int32_t* ry,
-                          const int32_t* rsg, int32_t* an3, int32_t* rn3,
-                          int B, int lane) {
-  const bool a_ok = niels_point(cst, ay, asg, an3, B, lane);
-  const bool r_ok = niels_point(cst, ry, rsg, rn3, B, lane);
-  return (a_ok && r_ok) ? 1 : 0;
-}
-
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(DN_LANES_PER_BLOCK)
+__global__ void __launch_bounds__(DN_THREADS)
 decompress_niels_kernel(const int32_t* __restrict__ consts,
                         const int32_t* __restrict__ ay,
                         const int32_t* __restrict__ asg,
@@ -71,11 +69,19 @@ decompress_niels_kernel(const int32_t* __restrict__ consts,
                         int32_t* __restrict__ an3, int32_t* __restrict__ rn3,
                         uint8_t* __restrict__ ok, int B) {
   __shared__ int32_t cst[DN_CONSTS];
+  __shared__ bool r_ok[DN_LANES_PER_BLOCK];
   for (int i = threadIdx.x; i < DN_CONSTS; i += blockDim.x) cst[i] = consts[i];
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  ok[lane] = niels_lane(cst, ay, asg, ry, rsg, an3, rn3, B, lane);
+  const bool is_r = threadIdx.x >= DN_LANES_PER_BLOCK;
+  const int j = threadIdx.x % DN_LANES_PER_BLOCK;
+  const int lane = blockIdx.x * DN_LANES_PER_BLOCK + j;
+  bool pt_ok = false;
+  if (lane < B)
+    pt_ok = niels_point(cst, is_r ? ry : ay, is_r ? rsg : asg,
+                        is_r ? rn3 : an3, B, lane);
+  if (is_r) r_ok[j] = pt_ok;
+  __syncthreads();
+  if (!is_r && lane < B) ok[lane] = (pt_ok && r_ok[j]) ? 1 : 0;
 }
 
 extern "C" cudaError_t fdt_decompress_niels_launch(
@@ -84,7 +90,7 @@ extern "C" cudaError_t fdt_decompress_niels_launch(
     uint8_t* ok, int B, void* stream) {
   if (B <= 0) return cudaSuccess;
   const int blocks = (B + DN_LANES_PER_BLOCK - 1) / DN_LANES_PER_BLOCK;
-  decompress_niels_kernel<<<blocks, DN_LANES_PER_BLOCK, 0,
+  decompress_niels_kernel<<<blocks, DN_THREADS, 0,
                             (cudaStream_t)stream>>>(consts, ay, asg, ry, rsg,
                                                     an3, rn3, ok, B);
   return cudaGetLastError();
@@ -98,8 +104,11 @@ extern "C" void fdt_decompress_niels_host(const int32_t* consts,
                                           const int32_t* ry,
                                           const int32_t* rsg, int32_t* an3,
                                           int32_t* rn3, uint8_t* ok, int B) {
-  for (int lane = 0; lane < B; lane++)
-    ok[lane] = niels_lane(consts, ay, asg, ry, rsg, an3, rn3, B, lane);
+  for (int lane = 0; lane < B; lane++) {
+    const bool a_ok = niels_point(consts, ay, asg, an3, B, lane);
+    const bool r_ok = niels_point(consts, ry, rsg, rn3, B, lane);
+    ok[lane] = (a_ok && r_ok) ? 1 : 0;
+  }
 }
 
 #endif

@@ -8,11 +8,21 @@
 // columns.  The kernels' interface is field.py's radix-2^13 layout
 // (fe_from_limbs13 at load, fe_to_limbs13 at store).
 //
-// Carry discipline: a carried element has |limb| <= 2^25.  fe_mul accepts
-// operands with |limb| <= 2^27 (a sum or difference of up to four carried
-// elements): the largest column is 267 * 2^27 * 2^27 < 2^63, and the doubled
-// odd limbs of the first operand stay below 2^28 in int32.  Every point
-// formula below feeds fe_mul at most three-term combinations.
+// Carry discipline: a carried element has |limb| < 2^25 + 2^16 (odd limbs
+// < 2^24 + 2^16; fe_carry_wide).  fe_mul and fe_sq accept operands with
+// |limb| <= 2^27 + 2^18 (a sum or difference of up to four carried
+// elements): the largest folded column is 267 * (2^27 + 2^18)^2 < 2^62.1,
+// and the doubled (fe_mul) or quadrupled (fe_sq) limbs stay below 2^30 in
+// int32.  Callers keep every operand inside that bound; verify_core.cu's
+// team formulas feed at most four-term combinations.
+//
+// What bounds the kernels that use this code is the issue of 32x32->64
+// multiply-adds (IMAD.WIDE, at half the card's 32-bit IMAD rate), so the
+// design spends products sparingly and keeps them in registers: fe_sq
+// takes 55 products where fe_mul takes 100, each product is one
+// mad.wide.s32 (mad_wide), every field product is inlined (one coordinate
+// or one point per thread leaves the register room), and the carry runs as
+// ref10's two interleaved chains.
 //
 // Compiled without __CUDACC__ (plain C++), every function is a host
 // function: each kernel source then builds a host library that the CPU
@@ -26,12 +36,12 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define FDT_FN __device__ __forceinline__
-#define FDT_MUL_FN __device__ __noinline__
 #define FDT_UNROLL _Pragma("unroll")
+#define FDT_NO_UNROLL _Pragma("unroll 1")
 #else
 #define FDT_FN static inline
-#define FDT_MUL_FN static
 #define FDT_UNROLL
+#define FDT_NO_UNROLL
 #endif
 
 #if defined(__CUDA_ARCH__)
@@ -54,9 +64,6 @@ struct fe {
 };
 struct ge {  // extended coordinates
   fe x, y, z, t;
-};
-struct niels {  // (Y+X, Y-X, 2dT, 2Z)
-  fe ypx, ymx, t2d, z2;
 };
 
 FDT_FN fe fe_zero() {
@@ -102,23 +109,40 @@ FDT_FN fe fe_select(const fe& a, const fe& b, bool c) {
   return r;
 }
 
-// Centered carry of ten int64 columns into a carried element: even limbs
-// end in [-2^25, 2^25), odd limbs in [-2^24, 2^24) (limb 1 may take a further
-// |carry| < 2^16 from the 2^255 = 19 fold).
-FDT_FN fe fe_carry_wide(int64_t* c) {
-  for (int i = 0; i < 10; i++) {
-    const int s = (i & 1) ? 25 : 26;
-    const int64_t carry = (c[i] + ((int64_t)1 << (s - 1))) >> s;
-    c[i] -= carry * ((int64_t)1 << s);
-    if (i < 9) {
-      c[i + 1] += carry;
-    } else {
-      c[0] += carry * 19;
-    }
+// Centered carry of column i into column i + 1 (column 9 into column 0,
+// times 19): column i ends in [-2^25, 2^25) (even) or [-2^24, 2^24) (odd).
+FDT_FN void fe_carry_at(int64_t* c, int i) {
+  const int s = (i & 1) ? 25 : 26;
+  const int64_t carry = (c[i] + ((int64_t)1 << (s - 1))) >> s;
+  c[i] -= carry * ((int64_t)1 << s);
+  if (i < 9) {
+    c[i + 1] += carry;
+  } else {
+    c[0] += carry * 19;
   }
-  const int64_t carry = (c[0] + ((int64_t)1 << 25)) >> 26;
-  c[0] -= carry * ((int64_t)1 << 26);
-  c[1] += carry;
+}
+
+// Ten int64 columns (|column| < 2^63 - 2^26) into a carried element, in
+// ref10's order: two chains, from columns 0 and 4, run side by side.  Even
+// limbs end in [-2^25, 2^25), odd limbs in [-2^24, 2^24), except that limb
+// 1 may take a further |carry| < 2^16 (the 2^255 = 19 fold) and limb 5 one
+// < 2^12 (the second carry out of limb 4).  (Two passes of ten independent
+// carries, a dependent depth of two steps, made verify_core about 10 %
+// slower on the card: their extra instructions cost more than the shorter
+// chain saves.)
+FDT_FN fe fe_carry_wide(int64_t* c) {
+  fe_carry_at(c, 0);
+  fe_carry_at(c, 4);
+  fe_carry_at(c, 1);
+  fe_carry_at(c, 5);
+  fe_carry_at(c, 2);
+  fe_carry_at(c, 6);
+  fe_carry_at(c, 3);
+  fe_carry_at(c, 7);
+  fe_carry_at(c, 4);
+  fe_carry_at(c, 8);
+  fe_carry_at(c, 9);
+  fe_carry_at(c, 0);
   fe r;
   for (int i = 0; i < 10; i++) r.v[i] = (int32_t)c[i];
   return r;
@@ -130,9 +154,35 @@ FDT_FN fe fe_carry(const fe& a) {
   return fe_carry_wide(c);
 }
 
-// Product f*g: column i+j takes f_i g_j, doubled when i and j are both odd
-// (limb positions ceil(25.5 i)), and columns >= 10 fold back times 19.
-FDT_MUL_FN fe fe_mul(const fe f, const fe g) {
+// acc + a b, one signed 32x32->64 multiply-add (IMAD.WIDE).  Spelled out in
+// PTX on the card: written as a 64-bit product of sign-extended operands,
+// it becomes three 32-bit IMADs wherever the compiler hoists an operand's
+// sign extension (an operand used by several inlined products): on an H100
+// a dependent fe_mul then took 1,324 cycles instead of 869, and
+// verify_core 254 registers instead of 168 (chip_smoke.py's sass and build
+// phases).
+FDT_FN int64_t mad_wide(int32_t a, int32_t b, int64_t acc) {
+#if defined(__CUDA_ARCH__)
+  int64_t r;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(acc));
+  return r;
+#else
+  return acc + (int64_t)a * (int64_t)b;
+#endif
+}
+
+// Columns >= 10 fold back times 19 (2^255 = 19), then carry.
+FDT_FN fe fe_fold_carry(int64_t* c) {
+  int64_t h[10];
+  FDT_UNROLL
+  for (int k = 0; k < 9; k++) h[k] = c[k] + 19 * c[k + 10];
+  h[9] = c[9];
+  return fe_carry_wide(h);
+}
+
+// Product f*g, 100 products: column i+j takes f_i g_j, doubled when i and j
+// are both odd (limb positions ceil(25.5 i)).
+FDT_FN fe fe_mul(const fe& f, const fe& g) {
   int32_t f2[10];
   FDT_UNROLL
   for (int i = 0; i < 10; i++) f2[i] = (i & 1) ? 2 * f.v[i] : f.v[i];
@@ -144,19 +194,38 @@ FDT_MUL_FN fe fe_mul(const fe f, const fe g) {
     FDT_UNROLL
     for (int j = 0; j < 10; j++) {
       const int32_t fi = ((i & 1) && (j & 1)) ? f2[i] : f.v[i];
-      c[i + j] += (int64_t)fi * (int64_t)g.v[j];
+      c[i + j] = mad_wide(fi, g.v[j], c[i + j]);
     }
   }
-  int64_t h[10];
-  FDT_UNROLL
-  for (int k = 0; k < 9; k++) h[k] = c[k] + 19 * c[k + 10];
-  h[9] = c[9];
-  return fe_carry_wide(h);
+  return fe_fold_carry(c);
 }
 
-FDT_FN fe fe_sq(const fe& f) { return fe_mul(f, f); }
+// Square f^2, 55 products (ref10's fe_sq): a cross term f_i f_j, i < j,
+// enters once at twice fe_mul's weight (four times when i and j are both
+// odd), a square term f_i^2 once (doubled when i is odd).  The columns are
+// fe_mul(f, f)'s, so the result equals it limb for limb, under the same
+// column bound; 4 f_i stays below 2^29.
+FDT_FN fe fe_sq(const fe& f) {
+  int32_t f2[10];
+  FDT_UNROLL
+  for (int i = 0; i < 10; i++) f2[i] = 2 * f.v[i];
+  int64_t c[19];
+  FDT_UNROLL
+  for (int k = 0; k < 19; k++) c[k] = 0;
+  FDT_UNROLL
+  for (int i = 0; i < 10; i++) {
+    c[2 * i] = mad_wide(f.v[i], (i & 1) ? f2[i] : f.v[i], c[2 * i]);
+    FDT_UNROLL
+    for (int j = i + 1; j < 10; j++) {
+      const int32_t fi = ((i & 1) && (j & 1)) ? 2 * f2[i] : f2[i];
+      c[i + j] = mad_wide(fi, f.v[j], c[i + j]);
+    }
+  }
+  return fe_fold_carry(c);
+}
 
 FDT_FN fe fe_sq_n(fe f, int n) {
+  FDT_NO_UNROLL
   for (int i = 0; i < n; i++) f = fe_sq(f);
   return f;
 }
@@ -258,72 +327,10 @@ FDT_FN ge ge_identity() {
   return p;
 }
 
-// dbl-2008-hwcd, a = -1; T only when asked
-FDT_FN ge ge_double(const ge& p, bool with_t) {
-  const fe a = fe_sq(p.x);
-  const fe b = fe_sq(p.y);
-  const fe c2 = fe_sq(p.z);
-  const fe e = fe_sub(fe_sub(fe_sq(fe_add(p.x, p.y)), a), b);
-  const fe g = fe_sub(b, a);
-  const fe f = fe_carry(fe_sub(fe_sub(g, c2), c2));
-  const fe h = fe_neg(fe_add(a, b));
-  ge r;
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = with_t ? fe_mul(e, h) : fe_zero();
-  return r;
-}
-
-// add-2008-hwcd-3, a = -1, k = 2d (table building)
-FDT_FN ge ge_add(const ge& p, const ge& q, const fe& d2) {
-  const fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
-  const fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
-  const fe c = fe_mul(fe_mul(p.t, d2), q.t);
-  const fe zz = fe_mul(p.z, q.z);
-  const fe zz2 = fe_add(zz, zz);
-  const fe e = fe_sub(b, a);
-  const fe f = fe_sub(zz2, c);
-  const fe g = fe_add(zz2, c);
-  const fe h = fe_add(b, a);
-  ge r;
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-  return r;
-}
-
-FDT_FN niels to_niels(const ge& p, const fe& d2) {
-  niels n;
-  n.ypx = fe_carry(fe_add(p.y, p.x));
-  n.ymx = fe_carry(fe_sub(p.y, p.x));
-  n.t2d = fe_mul(p.t, d2);
-  n.z2 = fe_carry(fe_add(p.z, p.z));
-  return n;
-}
-
-// p + e, e = (Y+X, Y-X, 2dT, 2Z)
-FDT_FN ge ge_add_niels(const ge& p, const niels& e) {
-  const fe a = fe_mul(fe_sub(p.y, p.x), e.ymx);
-  const fe b = fe_mul(fe_add(p.y, p.x), e.ypx);
-  const fe c = fe_mul(p.t, e.t2d);
-  const fe d2 = fe_mul(p.z, e.z2);
-  const fe ec = fe_sub(b, a);
-  const fe f = fe_sub(d2, c);
-  const fe g = fe_add(d2, c);
-  const fe h = fe_add(b, a);
-  ge r;
-  r.x = fe_mul(ec, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(ec, h);
-  return r;
-}
-
-// p + e, e = (y+x, y-x, 2dxy) affine niels (Z == 1); T only when asked
+// p + e, e = (y+x, y-x, 2dxy) affine niels (Z == 1): add-2008-hwcd-3 with
+// a = -1 (the MSM's bucket addition)
 FDT_FN ge ge_add_niels_affine(const ge& p, const fe& ypx, const fe& ymx,
-                              const fe& t2d, bool with_t) {
+                              const fe& t2d) {
   const fe a = fe_mul(fe_sub(p.y, p.x), ymx);
   const fe b = fe_mul(fe_add(p.y, p.x), ypx);
   const fe c = fe_mul(p.t, t2d);
@@ -336,7 +343,7 @@ FDT_FN ge ge_add_niels_affine(const ge& p, const fe& ypx, const fe& ymx,
   r.x = fe_mul(ec, f);
   r.y = fe_mul(g, h);
   r.z = fe_mul(f, g);
-  r.t = with_t ? fe_mul(ec, h) : fe_zero();
+  r.t = fe_mul(ec, h);
   return r;
 }
 

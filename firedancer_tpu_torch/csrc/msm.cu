@@ -35,7 +35,8 @@
 // What bounds it: per nonzero digit one affine-niels addition with T, 7
 // multiplications of 100 32x32->64 products; at most 97 x 700 = 67,900
 // products per lane (msm.py::msm_products counts this run's nonzero
-// digits), about 16.6 us for B = 4096 at 16.75e12 per second.  The output
+// digits), about 33 us for B = 4096 at the card's 8.4e12 32x32->64
+// multiply-adds (IMAD.WIDE) per second, half its 32-bit IMAD rate.  The output
 // is 64 x 8 x 80 x 4 bytes per slot, 41.9 MB at S = 256, about 12.5 us at
 // 3.35 TB/s: the products bound it.  The simple design does nothing about
 // either yet: 64 x S threads (16,384 at S = 256) are under 130 per SM, each
@@ -64,7 +65,7 @@ FDT_FN void msm_add(ge* bk, const int32_t* n3, int B, int i, int d) {
   const fe t2d = fe_from_limbs13(n3 + 40 * (int64_t)B, B, i);
   bk[a - 1] = ge_add_niels_affine(bk[a - 1], fe_select(ypx, ymx, d < 0),
                                   fe_select(ymx, ypx, d < 0),
-                                  fe_select(t2d, fe_neg(t2d), d < 0), true);
+                                  fe_select(t2d, fe_neg(t2d), d < 0));
 }
 
 // One bucket set: window `w`, lane slot `slot` of S.

@@ -54,9 +54,31 @@ def field_ops_per_lane() -> tuple:
 
 def products_per_lane() -> int:
     """32x32->64 limb products one lane needs (the kernel's bound counts
-    these; it runs squarings as multiplications for now, so it does more)."""
+    these)."""
     sqr, mul = field_ops_per_lane()
     return sqr * PRODUCTS_PER_SQR + mul * PRODUCTS_PER_MUL
+
+
+#: members of the kernel's team (csrc/verify_core.cu)
+TEAM = 4
+
+
+def kernel_products_per_lane() -> int:
+    """32x32->64 limb products the kernel's team of TEAM threads runs per
+    lane, more than products_per_lane() needs: every member runs every
+    round, so each decompression runs on two members; a doubling's round
+    makes T too (the function needs it on the last of four), an addition's
+    multiplies by the base entry's Z (2), and each niels conversion's
+    multiplies three members by one."""
+    dec_sqr, dec_mul = _DECOMPRESS
+    decompress = TEAM * (dec_sqr * PRODUCTS_PER_SQR + dec_mul * PRODUCTS_PER_MUL)
+    double = TEAM * (PRODUCTS_PER_SQR + PRODUCTS_PER_MUL)
+    add = TEAM * 2 * PRODUCTS_PER_MUL
+    niels = TEAM * PRODUCTS_PER_MUL
+    table = 4 * double + 3 * add + 8 * niels
+    loop = 64 * (4 * double + 2 * add)
+    compare = TEAM * PRODUCTS_PER_MUL
+    return decompress + table + loop + compare
 
 
 # radix-2^25.5 limb positions of the kernel's representation

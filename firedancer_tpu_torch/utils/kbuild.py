@@ -11,6 +11,11 @@ text, of every shared header (csrc/*.cuh) and of the flags, so an edited
 source or header rebuilds and an unchanged one is reused.  The ptxas report (registers, spills, stack per kernel) is kept
 beside each library as lib<name>.log (`build_log(name)`).  A build that
 fails raises; there is no fallback.
+
+`sources()` lists the kernels of the port's paths (csrc/*.cu).  A name may
+also name a probe under a subdirectory ("probe/fe_probe" for
+csrc/probe/fe_probe.cu), built the same way; `sass(name)` disassembles a
+built library with cuobjdump.
 """
 
 from __future__ import annotations
@@ -58,13 +63,37 @@ def _out_dir(name: str) -> Path:
     return BUILD / h.hexdigest()[:16]
 
 
+def _stem(name: str) -> str:
+    return Path(name).name
+
+
 def library_path(name: str) -> Path:
-    return _out_dir(name) / f"lib{name}.so"
+    return _out_dir(name) / f"lib{_stem(name)}.so"
 
 
 def build_log(name: str) -> str:
     """nvcc's output (the -Xptxas -v report) for the built library."""
-    return (_out_dir(name) / f"lib{name}.log").read_text()
+    return (_out_dir(name) / f"lib{_stem(name)}.log").read_text()
+
+
+def _tool(name: str) -> str:
+    """A CUDA toolkit program: beside nvcc first, then $PATH."""
+    cand = Path(nvcc()).parent / name
+    if cand.exists():
+        return str(cand)
+    found = shutil.which(name)
+    if found:
+        return found
+    raise RuntimeError(f"{name} not found beside nvcc or on $PATH")
+
+
+def sass(name: str) -> str:
+    """cuobjdump -sass of the library `name` (built on first use)."""
+    build_all([name])
+    return subprocess.run(
+        [_tool("cuobjdump"), "-sass", str(library_path(name))],
+        capture_output=True, text=True, check=True,
+    ).stdout
 
 
 def _build(name: str) -> None:
@@ -73,18 +102,19 @@ def _build(name: str) -> None:
     build."""
     out = _out_dir(name)
     out.mkdir(parents=True, exist_ok=True)
+    lib = f"lib{_stem(name)}"
     with tempfile.TemporaryDirectory(dir=out) as tmp:
         tmp = Path(tmp)
         res = subprocess.run(
-            [nvcc(), *FLAGS, "-o", str(tmp / f"lib{name}.so"),
+            [nvcc(), *FLAGS, "-o", str(tmp / f"{lib}.so"),
              str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stdout}")
-        (tmp / f"lib{name}.log").write_text(res.stdout)
-        os.replace(tmp / f"lib{name}.log", out / f"lib{name}.log")
-        os.replace(tmp / f"lib{name}.so", out / f"lib{name}.so")
+        (tmp / f"{lib}.log").write_text(res.stdout)
+        os.replace(tmp / f"{lib}.log", out / f"{lib}.log")
+        os.replace(tmp / f"{lib}.so", out / f"{lib}.so")
 
 
 def build_all(names=None) -> list:

@@ -69,14 +69,13 @@ def _corpus(n: int):
     pubs[6] = np.frombuffer(y, np.uint8)  # non-canonical y of A
     sigs[7, :32] = np.frombuffer(y, np.uint8)  # non-canonical y of R
     pubs[8] = np.frombuffer((1 | (1 << 255)).to_bytes(32, "little"), np.uint8)
-    idx = np.arange(n) % N_BASE
-    msgs, lens, sigs, pubs = msgs[idx], lens[idx], sigs[idx], pubs[idx]
     want = np.array([
         golden.verify(msgs[i, : lens[i]].tobytes(), sigs[i].tobytes(),
                       pubs[i].tobytes()) == 0
         for i in range(N_BASE)
-    ])[idx]
-    return msgs, lens, sigs, pubs, want
+    ])
+    idx = np.arange(n) % N_BASE
+    return msgs[idx], lens[idx], sigs[idx], pubs[idx], want[idx]
 
 
 def _core_inputs(n: int):
@@ -99,7 +98,11 @@ def test_kernel_builds(dev):
         assert "registers" in kbuild.build_log(name)
 
 
-@pytest.mark.parametrize("n", [13, 300])  # 300: a ragged last block
+# ragged teams and blocks (1, 13, 31, 33, 300) and the subgroup gate's width
+RAGGED_B = [1, 13, 31, 33, 300, 8192]
+
+
+@pytest.mark.parametrize("n", RAGGED_B)
 def test_kernel_matches_plain(dev, n):
     core = _core_inputs(n)
     want = VC.verify_core_plain(*core)
@@ -192,7 +195,7 @@ def _niels_in(n: int):
     return _core_inputs(n)[2:]
 
 
-@pytest.mark.parametrize("n", [13, 300])
+@pytest.mark.parametrize("n", RAGGED_B)
 def test_decompress_niels_kernel_matches_plain(dev, n):
     args = _niels_in(n)
     want = MSM.decompress_niels_plain(*args)

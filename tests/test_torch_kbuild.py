@@ -84,3 +84,21 @@ def test_edited_header_rebuilds_every_source(fake):
     assert sorted(calls.read_text().split()) == ["a", "a", "b", "b"]
     (csrc / "other.cuh").write_text("// a new header")
     assert not kbuild.library_path("a").exists()
+
+
+def test_probe_in_subdirectory_builds_and_disassembles(fake):
+    """A probe under csrc/<dir>/ builds like a kernel but is not one of the
+    path's sources; sass() runs cuobjdump (from beside nvcc) on it."""
+    csrc, calls = fake
+    (csrc / "a.cu").write_text("kernel a")
+    (csrc / "probe").mkdir()
+    (csrc / "probe" / "p.cu").write_text("probe p")
+    cuobjdump = kbuild.Path(kbuild.nvcc()).parent / "cuobjdump"
+    cuobjdump.write_text(f"#!{sys.executable}\nimport sys\n"
+                         "print('Function : p', open(sys.argv[-1]).read())\n")
+    cuobjdump.chmod(cuobjdump.stat().st_mode | stat.S_IXUSR)
+    assert kbuild.sources() == ["a"]
+    assert kbuild.sass("probe/p") == "Function : p probe p\n"
+    assert kbuild.library_path("probe/p").name == "libp.so"
+    assert "registers" in kbuild.build_log("probe/p")
+    assert calls.read_text().split() == ["p"]

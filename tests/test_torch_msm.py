@@ -298,16 +298,24 @@ def test_msm_wrapper_runs_plain_on_cpu(msm_case, plain_buckets):
 
 
 def _host_lib(tmp_path_factory, name):
+    """csrc/<name>.cu as plain C++, with every signed overflow and bad shift
+    reported on stderr (read by _no_sanitizer_report)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler to build the kernel's host form")
     out = tmp_path_factory.mktemp(name) / f"lib{name}_host.so"
     subprocess.run(
-        [cxx, "-O2", "-std=c++17", "-Wall", "-Wextra", "-Werror", "-shared",
-         "-fPIC", "-x", "c++", str(kbuild.CSRC / f"{name}.cu"), "-o", str(out)],
+        [cxx, "-O2", "-std=c++17", "-Wall", "-Wextra", "-Werror",
+         "-fsanitize=signed-integer-overflow,shift", "-shared", "-fPIC",
+         "-x", "c++", str(kbuild.CSRC / f"{name}.cu"), "-o", str(out)],
         check=True, capture_output=True,
     )
     return ctypes.CDLL(str(out))
+
+
+def _no_sanitizer_report(capfd):
+    err = capfd.readouterr().err
+    assert "runtime error" not in err, err
 
 
 def _i32(t):
@@ -354,8 +362,10 @@ def _canon(t):
     return F.canonical(x)
 
 
-def test_decompress_niels_kernel_arithmetic(niels_inputs, host_decompress_niels):
+def test_decompress_niels_kernel_arithmetic(niels_inputs, host_decompress_niels,
+                                            capfd):
     an3, rn3, ok = host_decompress_niels(*niels_inputs)
+    _no_sanitizer_report(capfd)
     pan3, prn3, pok = MSM.decompress_niels_plain(*niels_inputs)
     assert torch.equal(ok, pok)
     for got, want in zip((an3, rn3), (pan3, prn3)):
@@ -365,14 +375,15 @@ def test_decompress_niels_kernel_arithmetic(niels_inputs, host_decompress_niels)
         assert torch.equal(g, F.canonical(w))  # every lane, failed ones too
 
 
-def test_decompress_niels_kernel_random_lanes(host_decompress_niels):
+@pytest.mark.parametrize("n", [1, 24, 33])
+def test_decompress_niels_kernel_random_lanes(host_decompress_niels, capfd, n):
     rng = np.random.default_rng(41)
-    n = 24
     ys = rng.integers(0, 1 << 13, (2, 20, n)).astype(np.int32)
     ys[:, 19] &= 0xFF  # 255-bit values, as decompress_bytes makes
     signs = rng.integers(0, 2, (2, 1, n)).astype(np.int32)
     args = [torch.from_numpy(x) for x in (ys[0], signs[0], ys[1], signs[1])]
     got = host_decompress_niels(*args)
+    _no_sanitizer_report(capfd)
     want = MSM.decompress_niels_plain(*args)
     assert torch.equal(got[2], want[2])
     for g, w in zip(got[:2], want[:2]):
@@ -380,7 +391,7 @@ def test_decompress_niels_kernel_random_lanes(host_decompress_niels):
 
 
 @pytest.mark.parametrize("slots", [2, 8])
-def test_msm_kernel_arithmetic(msm_case, plain_buckets, host_msm, slots):
+def test_msm_kernel_arithmetic(msm_case, plain_buckets, host_msm, slots, capfd):
     """The kernel's additions equal the plain version's after
     canonicalisation, with canonical (kernel) and carried (plain) niels in."""
     m = msm_case
@@ -392,9 +403,10 @@ def test_msm_kernel_arithmetic(msm_case, plain_buckets, host_msm, slots):
                for x in (m["an3"], m["rn3"])]
     got2 = host_msm(m["cdig"], m["zdig"], *canon_n, slots)
     assert torch.equal(_canon(got2), want)
+    _no_sanitizer_report(capfd)
 
 
-def test_msm_kernel_random_digits(host_msm):
+def test_msm_kernel_random_digits(host_msm, capfd):
     """Digits over all of [-8, 8] with repeats of one point (bucket
     doublings), on 13 lanes (a ragged last step at S = 4)."""
     rng = np.random.default_rng(71)
@@ -409,6 +421,7 @@ def test_msm_kernel_random_digits(host_msm):
     zdig = torch.from_numpy(rng.integers(-8, 9, (MSM.ZWIN, n)).astype(np.int32))
     want = MSM.msm_buckets_plain(cdig, zdig, an3, rn3, slots)
     assert torch.equal(_canon(host_msm(cdig, zdig, an3, rn3, slots)), _canon(want))
+    _no_sanitizer_report(capfd)
 
 
 # ---------------------------------------------------------------------------

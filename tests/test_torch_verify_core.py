@@ -164,21 +164,42 @@ def test_muls_per_lane(core_inputs, monkeypatch):
         counts["sqr"] * len(unordered) + counts["mul"] * len(pairs))
 
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
-    """csrc/verify_core.cu compiled as plain C++: the kernel's own lane
-    function, callable on the CPU."""
+#: the host builds trap nothing but report every signed overflow and bad
+#: shift on stderr, which the tests read (capfd): the field code's limb and
+#: column bounds are checked on every lane they run
+SANITIZE = ["-fsanitize=signed-integer-overflow,shift"]
+
+
+def host_library(tmp_path_factory, name):
+    """csrc/<name>.cu compiled as plain C++ with the sanitizer: the
+    kernel's own arithmetic, callable on the CPU."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no C++ compiler to build the kernel's host form")
-    out = tmp_path_factory.mktemp("vc") / "libverify_core_host.so"
+    out = tmp_path_factory.mktemp(name) / f"lib{name}_host.so"
     subprocess.run(
-        [cxx, "-O2", "-std=c++17", "-Wall", "-Wextra", "-Werror", "-shared",
-         "-fPIC", "-x", "c++", str(kbuild.CSRC / "verify_core.cu"),
+        [cxx, "-O2", "-std=c++17", "-Wall", "-Wextra", "-Werror", *SANITIZE,
+         "-shared", "-fPIC", "-x", "c++", str(kbuild.CSRC / f"{name}.cu"),
          "-o", str(out)],
         check=True, capture_output=True,
     )
-    fn = ctypes.CDLL(str(out)).fdt_verify_core_host
+    return ctypes.CDLL(str(out))
+
+
+def assert_no_sanitizer_report(capfd):
+    err = capfd.readouterr().err
+    assert "runtime error" not in err, err
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return host_library(tmp_path_factory, "verify_core")
+
+
+@pytest.fixture(scope="module")
+def host_kernel(host_lib):
+    """The kernel's team code, every member in one thread."""
+    fn = host_lib.fdt_verify_core_host
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int]
     fn.restype = None
 
@@ -193,15 +214,17 @@ def host_kernel(tmp_path_factory):
     return run
 
 
-def test_kernel_arithmetic_matches_plain(core_inputs, plain_out, host_kernel):
+def test_kernel_arithmetic_matches_plain(core_inputs, plain_out, host_kernel,
+                                        capfd):
     np.testing.assert_array_equal(host_kernel(*core_inputs), plain_out.numpy())
+    assert_no_sanitizer_report(capfd)
 
 
-def test_kernel_arithmetic_random_lanes(host_kernel):
+@pytest.mark.parametrize("n", [1, 24, 33])
+def test_kernel_arithmetic_random_lanes(host_kernel, capfd, n):
     """Random y limbs and digits (most y fail to decompress): the kernel's
-    lane function and the plain version agree lane for lane."""
+    team code and the plain version agree lane for lane."""
     rng = np.random.default_rng(41)
-    n = 24
     k = rng.integers(-8, 8, (64, n)).astype(np.int32)
     s = rng.integers(-8, 8, (64, n)).astype(np.int32)
     ys = rng.integers(0, 1 << 13, (2, 20, n)).astype(np.int32)
@@ -210,6 +233,58 @@ def test_kernel_arithmetic_random_lanes(host_kernel):
     args = (k, s, ys[0], signs[0], ys[1], signs[1])
     want = VC.verify_core_plain(*(torch.from_numpy(a) for a in args))
     np.testing.assert_array_equal(host_kernel(*args), want.numpy())
+    assert_no_sanitizer_report(capfd)
+
+
+# radix-2^25.5 limb positions of the kernel's field elements
+POS25 = [0, 26, 51, 77, 102, 128, 153, 179, 204, 230]
+EDGE = 1 << 27  # |limb| bound of fe_mul's and fe_sq's operands
+
+
+def _fe_value(limbs) -> int:
+    return sum(int(v) << p for v, p in zip(limbs, POS25))
+
+
+def _fe_cases(kind: str) -> np.ndarray:
+    rng = np.random.default_rng(len(kind))
+    n = 64
+    if kind == "random":
+        return rng.integers(-EDGE, EDGE + 1, (n, 10)).astype(np.int32)
+    if kind == "carried":
+        return rng.integers(-(1 << 25), (1 << 25) + 1, (n, 10)).astype(np.int32)
+    if kind == "edge_signs":  # every limb at the edge, random signs
+        return (EDGE * rng.choice([-1, 1], (n, 10))).astype(np.int32)
+    if kind == "edge_positive":
+        return np.full((1, 10), EDGE, np.int32)
+    if kind == "edge_negative":
+        return np.full((1, 10), -EDGE, np.int32)
+    assert kind == "small"
+    return np.array([[0] * 10, [1] + [0] * 9, [-1] + [0] * 9, [0] * 9 + [1]],
+                    np.int32)
+
+
+@pytest.mark.parametrize(
+    "kind", ["random", "carried", "edge_signs", "edge_positive",
+             "edge_negative", "small"])
+def test_fe_sq_matches_fe_mul_and_python(host_lib, capfd, kind):
+    """The kernel's fe_sq (55 products) equals its fe_mul(f, f) limb for
+    limb and f^2 mod p as a Python integer, with carried limbs out, on
+    operands at the |limb| <= 2^27 edge of four carried elements; no signed
+    overflow."""
+    f = np.ascontiguousarray(_fe_cases(kind))
+    n = len(f)
+    sq, mul = np.zeros_like(f), np.zeros_like(f)
+    host_lib.fdt_fe_sq_host.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    host_lib.fdt_fe_mul_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    host_lib.fdt_fe_sq_host(f.ctypes.data, sq.ctypes.data, n)
+    host_lib.fdt_fe_mul_host(f.ctypes.data, f.ctypes.data, mul.ctypes.data, n)
+    assert_no_sanitizer_report(capfd)
+    np.testing.assert_array_equal(sq, mul)
+    for x, y in zip(f, sq):
+        assert _fe_value(y) % golden.P == _fe_value(x) ** 2 % golden.P
+    # carried: even limbs below 2^25 + 2^16, odd limbs below 2^24 + 2^16
+    assert np.abs(sq[:, 0::2]).max() < (1 << 25) + (1 << 16)
+    assert np.abs(sq[:, 1::2]).max() < (1 << 24) + (1 << 16)
 
 
 @pytest.mark.slow
