@@ -18,7 +18,8 @@ candidates of 1024 account bits.  Phases, one JSON line each:
   sass         the multiply instructions of one fe_mul and one fe_sq in
                their SASS (cuobjdump -sass of csrc/probe/fe_probe.cu), the
                card's measured issue rate of IMAD.WIDE and of IMAD, and the
-               cycles of one dependent fe_sq and fe_mul on one warp
+               cycles of one dependent fe_sq and fe_mul on one warp; the
+               instructions of msm_buckets' step loop
   kernel       verify_core against verify_core_plain on all 4096 lanes
   slice        several consecutive steps and the pack prefilter, checked
                against a host model of the dedup rules, the golden oracle on
@@ -35,9 +36,13 @@ candidates of 1024 account bits.  Phases, one JSON line each:
                the per-signature path, the corpus and the golden oracle;
                every kernel of the path must launch
   times        CUDA-event medians per layer, verifies/s, each kernel's bound
-  lanes_sweep  verify_core at B = 4096, 8192, 16384 and decompress_niels at
-               4096, 8192 (the batch tiled), each beside its bound: time
-               grows about linearly with B once the card is full
+               and the products its threads run (kernel_int32_multiply_adds)
+  lanes_sweep  verify_core at B = 4096, 8192, 16384, decompress_niels and
+               msm_buckets at 4096, 8192 (the batch tiled), each beside its
+               bound: time grows about linearly with B once the card is
+               full; and msm_buckets and msm_finalize at S = 128, 256, 512
+               lane slots on the valid batch, the kernel held against its
+               plain version and the batch verdict checked at each S
 
 then a `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
@@ -80,6 +85,8 @@ INT32_MAD_PER_S = 67e12 / 2 / 2
 # 6.5e12 IMAD.WIDE/s against 15.7e12 IMAD/s on an H100 at 700 W.  The
 # bounds count limb products at this rate.
 WIDE_MAD_PER_S = INT32_MAD_PER_S / 2
+#: csrc/msm.cu's kernel, as cuobjdump names it
+MSM_KERNEL_SYMBOL = "_Z18msm_buckets_kernelPKiS0_S0_S0_Piii"
 
 
 def layout():
@@ -353,14 +360,36 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def sass_counts(sass: str, function: str) -> dict:
-    """Opcode counts of one function's SASS (cuobjdump -sass): every IMAD
-    form by its full mnemonic, and the instruction total."""
+def _instructions(sass: str, function: str) -> list:
+    """(address, opcode, operands) of each instruction of one function's
+    SASS (cuobjdump -sass)."""
     body = sass.split(f"Function : {function}\n", 1)[1].split("Function : ", 1)[0]
-    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body)
+    return [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)", body)]
+
+
+def _imad_counts(ops: list) -> dict:
+    """Every IMAD form by its full mnemonic, and the instruction total."""
     counts = {op: ops.count(op) for op in sorted(set(ops)) if op.startswith("IMAD")}
     counts["instructions"] = len(ops)
     return counts
+
+
+def sass_counts(sass: str, function: str) -> dict:
+    """Opcode counts of one function's SASS."""
+    return _imad_counts([op for _, op, _ in _instructions(sass, function)])
+
+
+def loop_counts(sass: str, function: str) -> dict:
+    """Opcode counts of the longest loop of one function's SASS: the code
+    from a backward branch's target to the branch."""
+    ins = _instructions(sass, function)
+    lo = hi = 0
+    for addr, op, rest in ins:
+        m = re.match(r"\s*0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if m and addr - int(m.group(1), 16) > hi - lo:
+            lo, hi = int(m.group(1), 16), addr
+    return _imad_counts([op for addr, op, _ in ins if lo <= addr <= hi])
 
 
 def probe_rates(dev) -> dict:
@@ -517,6 +546,7 @@ def run(dev) -> dict:
           "fe_mul": sass_counts(probe_sass, "fdt_probe_fe_mul"),
           "fe_sq": sass_counts(probe_sass, "fdt_probe_fe_sq"),
           "rate_kernel_imad_wide": sass_counts(probe_sass, "fdt_probe_imad_wide"),
+          "msm_buckets_step_loop": loop_counts(kbuild.sass("msm"), MSM_KERNEL_SYMBOL),
           "measured": probe_rates(dev), "assumed_int32_mad_per_s": INT32_MAD_PER_S,
           "assumed_wide_mad_per_s": WIDE_MAD_PER_S})
 
@@ -756,8 +786,9 @@ def run(dev) -> dict:
                      nbytes(*dn_h, *dn_ker) + VC.kernel_consts().nbytes)
     msm_bound = bound(MSM.msm_products(ph["cdig"], ph["zdig"]),
                       nbytes(*msm_h, bk_h))
-    # what the team kernel runs: more products than the function needs
+    # what the team kernels run: more products than the functions need
     vc_bound["kernel_int32_multiply_adds"] = VC.kernel_products_per_lane() * B
+    msm_bound["kernel_int32_multiply_adds"] = MSM.msm_kernel_products(B, slots)
     bounds = {"verify_core": vc_bound, "decompress_niels": dn_bound,
               "msm_buckets": msm_bound}
     for name, bd in bounds.items():
@@ -790,6 +821,35 @@ def run(dev) -> dict:
                    + VC.kernel_consts().nbytes)
         sweep["decompress_niels"][lanes] = {"ms": t_ms, "bound_ms": bd["bound_ms"],
                                             "bound_share": bd["bound_ms"] / t_ms}
+    sweep["msm_buckets"] = {}
+    for lanes in (B, 2 * B):
+        ins = tile(msm_h, lanes)
+        t_ms = cuda_ms(lambda: MSM.msm_buckets(*ins), reps=20)
+        out_bytes = MSM.NWIN * MSM.NBUCKET * 4 * F.NLIMB * MSM.slots_for(lanes) * 4
+        bd = bound(MSM.msm_products(*ins[:2]), nbytes(*ins) + out_bytes)
+        sweep["msm_buckets"][lanes] = {
+            "slots": MSM.slots_for(lanes), "ms": t_ms, "bound_ms": bd["bound_ms"],
+            "bound_share": bd["bound_ms"] / t_ms,
+            "kernel_int32_multiply_adds": MSM.msm_kernel_products(lanes)}
+    # lane slots: the kernel's parallelism against the finalization's
+    # slot reduction, on the valid batch
+    sweep["msm_slots"] = {}
+    for s_ in (128, 256, 512):
+        bk = MSM.msm_buckets(*msm_h, slots=s_)
+        bk_plain = MSM.msm_buckets_plain(*msm_h, s_)
+        sync()
+        err = int((canon(bk) - canon(bk_plain)).abs().max())
+        verdict = bool(MSM.msm_finalize(bk, ph["udig"]))
+        if err != 0 or not verdict:
+            raise AssertionError(f"msm_buckets at S = {s_}: error {err}, "
+                                 f"verdict {verdict}")
+        t_ms = cuda_ms(lambda: MSM.msm_buckets(*msm_h, slots=s_), reps=20)
+        bd = bound(MSM.msm_products(ph["cdig"], ph["zdig"]), nbytes(*msm_h, bk))
+        sweep["msm_slots"][s_] = {
+            "ms": t_ms, "bound_ms": bd["bound_ms"], "bound_share": bd["bound_ms"] / t_ms,
+            "kernel_int32_multiply_adds": MSM.msm_kernel_products(B, s_),
+            "max_abs_err_canonical": err, "batch_ok": verdict,
+            "msm_finalize_ms": cuda_ms(lambda: MSM.msm_finalize(bk, ph["udig"]), reps=3)}
     emit({"phase": "lanes_sweep", "sweep": sweep, "card": smi})
 
     src = "firedancer_tpu_torch/csrc/"

@@ -23,7 +23,9 @@ lane slots, 8 buckets each, output (64, 8, 4, NLIMB, S).  Slot `s` takes
 lanes s, s + S, ... in order and adds, for each, +-A_i by its c = z k mod L
 digit and, in the first 33 windows, +-R_i by its z digit; so the kernel and
 the plain version make the same additions in the same order and agree
-exactly after F.canonical.
+exactly after F.canonical.  The kernel runs each bucket set as a team of
+four threads (csrc/team.cuh) and sends zero digits to a trash bucket 0, as
+the plain version does.
 
 A wrapper runs the plain version only for CPU tensors; a CUDA tensor goes
 through the kernel or the call raises.  `LAUNCHES` counts kernel launches
@@ -55,6 +57,11 @@ LAUNCHES = {"decompress_niels": 0, "msm_buckets": 0}
 DECOMPRESS_NIELS_OPS = (2 * VC._DECOMPRESS[0], 2 * VC._DECOMPRESS[1] + 2)
 #: multiplications of one bucket addition (add_niels_affine with T)
 ADD_MULS = 7
+#: multiplications the kernel's team runs per addition: two rounds of one
+#: per member (member 2 multiplies Z by the entry's 2Z = 2)
+KERNEL_ADD_MULS = 2 * VC.TEAM
+#: teams of the kernel in one block of 128 threads
+TEAMS_PER_BLOCK = 32
 
 
 def decompress_niels_products_per_lane() -> int:
@@ -68,6 +75,29 @@ def msm_products(cdig, zdig) -> int:
     addition per nonzero digit (a zero digit adds nothing)."""
     nonzero = int(torch.count_nonzero(cdig)) + int(torch.count_nonzero(zdig[:ZWIN]))
     return nonzero * ADD_MULS * VC.PRODUCTS_PER_MUL
+
+
+def msm_kernel_steps(batch: int, slots: int) -> int:
+    """Team additions the kernel runs for a batch of `batch` lanes at S =
+    `slots`: each of the 64 S teams (team t: window t // S, slot t % S)
+    runs its block's step count, that of the block's first team: 2n for a
+    window < ZWIN (A then R per lane), n for the others, n = ceil(B / S).
+    Zero digits and lanes past the batch are additions too (into the trash
+    bucket)."""
+    n = -(-batch // slots)
+    teams = NWIN * slots
+    return sum(
+        min(TEAMS_PER_BLOCK, teams - t0) * (2 * n if t0 // slots < ZWIN else n)
+        for t0 in range(0, teams, TEAMS_PER_BLOCK))
+
+
+def msm_kernel_products(batch: int, slots: int | None = None) -> int:
+    """32x32->64 limb products the kernel runs (more than msm_products
+    needs: the team's extra multiplication per addition, zero digits and
+    the ragged edge)."""
+    slots = slots_for(batch) if slots is None else slots
+    return (msm_kernel_steps(batch, slots) * KERNEL_ADD_MULS
+            * VC.PRODUCTS_PER_MUL)
 
 
 def slots_for(batch: int) -> int:

@@ -9,6 +9,7 @@ that has only PyTorch:
 Results are bools, integers and canonical field elements: every comparison
 is exact."""
 
+import functools
 import hashlib
 
 import numpy as np
@@ -224,6 +225,7 @@ def test_decompress_niels_kernel_random_lanes(dev):
         assert torch.equal(_canon(g.reshape(3, 20, n)), _canon(w.reshape(3, 20, n)))
 
 
+@functools.lru_cache(maxsize=None)
 def _msm_in(n: int):
     """Digits of the corpus's k and s (as c and z) and masked niels."""
     k, s, a_y, a_sign, r_y, r_sign = _core_inputs(n)
@@ -235,7 +237,11 @@ def _msm_in(n: int):
     return [cdig, zdig, torch.where(okm, an3, ident), torch.where(okm, rn3, ident)]
 
 
-@pytest.mark.parametrize("n,slots", [(13, 4), (13, 16), (300, 32), (300, 256)])
+# ragged and narrow batches, the deployment width at S = 256 and 128, and
+# twice it
+@pytest.mark.parametrize("n,slots", [(13, 4), (13, 16), (300, 32), (300, 256),
+                                     (1, 1), (33, 32), (4096, 256), (4096, 128),
+                                     (8192, 256)])
 def test_msm_kernel_matches_plain(dev, n, slots):
     args = _msm_in(n)
     want = MSM.msm_buckets_plain(*args, slots)
@@ -246,6 +252,19 @@ def test_msm_kernel_matches_plain(dev, n, slots):
     assert tuple(got.shape) == (MSM.NWIN, MSM.NBUCKET, 4, 20, slots)
     assert int(got.min()) >= 0 and int(got.max()) < 1 << 13
     assert torch.equal(_canon(got), _canon(want))
+
+
+@pytest.mark.parametrize("n,slots", [(300, 32), (4096, 256)])
+def test_msm_kernel_zero_digits_give_identity_buckets(dev, n, slots):
+    """Every digit zero: every addition goes to the trash bucket, and every
+    bucket written out is the identity (0, 1, 1, 0) in canonical limbs."""
+    cdig, zdig, an3, rn3 = _msm_in(n)
+    args = [torch.zeros_like(cdig), torch.zeros_like(zdig), an3, rn3]
+    got = MSM.msm_buckets(*(t.to(dev) for t in args), slots=slots).cpu()
+    coords = got.permute(2, 3, 0, 1, 4).reshape(4, 20, -1)  # (X, Y, Z, T)
+    assert not coords[:, 1:].any()
+    assert coords[:, 0].tolist() == [[v] * coords.shape[-1] for v in (0, 1, 1, 0)]
+    assert torch.equal(_canon(got), _canon(MSM.msm_buckets_plain(*args, slots)))
 
 
 def test_rlc_kernel_wrappers_reject_bad_inputs(dev):

@@ -341,10 +341,18 @@ def host_decompress_niels(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def host_msm(tmp_path_factory):
-    fn = _host_lib(tmp_path_factory, "msm").fdt_msm_buckets_host
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
-    fn.restype = None
+def host_msm_lib(tmp_path_factory):
+    lib = _host_lib(tmp_path_factory, "msm")
+    lib.fdt_msm_buckets_host.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+    lib.fdt_msm_buckets_host.restype = None
+    lib.fdt_msm_adds_host.argtypes = []
+    lib.fdt_msm_adds_host.restype = ctypes.c_long
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_msm(host_msm_lib):
+    fn = host_msm_lib.fdt_msm_buckets_host
 
     def run(cdig, zdig, an3, rn3, slots):
         n = cdig.shape[1]
@@ -390,12 +398,16 @@ def test_decompress_niels_kernel_random_lanes(host_decompress_niels, capfd, n):
         assert torch.equal(_canon(g.reshape(3, 20, n)), _canon(w.reshape(3, 20, n)))
 
 
-@pytest.mark.parametrize("slots", [2, 8])
+@pytest.mark.parametrize("slots", [1, 2, 8, 16])
 def test_msm_kernel_arithmetic(msm_case, plain_buckets, host_msm, slots, capfd):
     """The kernel's additions equal the plain version's after
-    canonicalisation, with canonical (kernel) and carried (plain) niels in."""
+    canonicalisation, with canonical (kernel) and carried (plain) niels in;
+    at S = 16 the batch (N lanes) is narrower than S."""
     m = msm_case
-    want = _canon(plain_buckets[slots])
+    plain = plain_buckets.get(slots)
+    if plain is None:
+        plain = MSM.msm_buckets_plain(m["cdig"], m["zdig"], m["an3"], m["rn3"], slots)
+    want = _canon(plain)
     got = host_msm(m["cdig"], m["zdig"], m["an3"], m["rn3"], slots)
     assert int(got.min()) >= 0 and int(got.max()) < 1 << 13
     assert torch.equal(_canon(got), want)
@@ -422,6 +434,102 @@ def test_msm_kernel_random_digits(host_msm, capfd):
     want = MSM.msm_buckets_plain(cdig, zdig, an3, rn3, slots)
     assert torch.equal(_canon(host_msm(cdig, zdig, an3, rn3, slots)), _canon(want))
     _no_sanitizer_report(capfd)
+
+
+def _msm_edge_inputs(kind, n, seed):
+    """Digits and niels of n lanes for the kernel's edge cases: points are
+    multiples of B (four of them, repeated, so buckets also double);
+    `kind` "random" draws digits over all of [-8, 8], "zero_rows" zeroes
+    whole digit rows and one lane's every digit, "all_zero" every digit,
+    "pm8" draws digits from {-8, 8} only."""
+    rng = np.random.default_rng(seed)
+    keys = [int.from_bytes(rng.bytes(32), "little") % L for _ in range(4)]
+    enc = torch.from_numpy(np.stack([
+        np.frombuffer(golden.point_compress(golden.scalar_mul(keys[i % 4], golden.B)), np.uint8)
+        for i in range(n)]))
+    r_enc = enc.flip(0).contiguous()
+    an3, rn3, ok = MSM.decompress_niels_plain(*PT.decompress_bytes(enc),
+                                              *PT.decompress_bytes(r_enc))
+    assert ok.all()
+    if kind == "pm8":
+        cdig = rng.choice([-8, 8], (MSM.NWIN, n))
+        zdig = rng.choice([-8, 8], (MSM.ZWIN, n))
+    else:
+        cdig = rng.integers(-8, 9, (MSM.NWIN, n))
+        zdig = rng.integers(-8, 9, (MSM.ZWIN, n))
+    if kind == "zero_rows":
+        cdig[::3] = 0
+        zdig[: MSM.ZWIN // 2] = 0
+        cdig[:, n // 2] = 0
+        zdig[:, n // 2] = 0
+    if kind == "all_zero":
+        cdig[:] = 0
+        zdig[:] = 0
+    return (torch.from_numpy(cdig.astype(np.int32)), torch.from_numpy(zdig.astype(np.int32)),
+            an3, rn3)
+
+
+@pytest.mark.parametrize("kind,n,slots", [
+    ("random", 33, 8),  # ragged: 33 lanes over 8 slots
+    ("random", 33, 32),
+    ("random", 13, 16),  # B < S
+    ("random", 1, 1),
+    ("random", 2, 4),  # B < S
+    ("zero_rows", 33, 8),
+    ("zero_rows", 13, 1),
+    ("all_zero", 13, 4),
+    ("pm8", 13, 4),
+    ("pm8", 33, 32),
+])
+def test_msm_kernel_edge_cases(host_msm, host_msm_lib, capfd, kind, n, slots):
+    """The team kernel's host build against the plain version at ragged
+    and narrow batches, zero digit rows (trash-bucket additions), all-zero
+    digits (identity buckets) and digits +-8; it runs exactly the team
+    additions msm_kernel_steps counts."""
+    cdig, zdig, an3, rn3 = _msm_edge_inputs(kind, n, seed=80 + n + slots)
+    got = host_msm(cdig, zdig, an3, rn3, slots)
+    _no_sanitizer_report(capfd)
+    assert host_msm_lib.fdt_msm_adds_host() == MSM.msm_kernel_steps(n, slots)
+    assert int(got.min()) >= 0 and int(got.max()) < 1 << 13
+    want = MSM.msm_buckets_plain(cdig, zdig, an3, rn3, slots)
+    assert torch.equal(_canon(got), _canon(want))
+    if kind == "all_zero":
+        coords = got.permute(2, 3, 0, 1, 4).reshape(4, 20, -1)  # (X, Y, Z, T)
+        assert not coords[:, 1:].any()
+        assert coords[:, 0].tolist() == [[v] * coords.shape[-1] for v in (0, 1, 1, 0)]
+
+
+def test_msm_kernel_empty_batch(host_msm, host_msm_lib, capfd):
+    """B = 0: no addition and no load; every bucket is the identity, as in
+    the plain version."""
+    empty = np.zeros((MSM.NWIN, 0), np.int32)
+    args = [torch.from_numpy(x) for x in (empty, empty[: MSM.ZWIN], np.zeros((60, 0), np.int32),
+                                           np.zeros((60, 0), np.int32))]
+    got = host_msm(*args, 2)
+    _no_sanitizer_report(capfd)
+    assert host_msm_lib.fdt_msm_adds_host() == 0 == MSM.msm_kernel_steps(0, 2)
+    assert torch.equal(_canon(got), _canon(MSM.msm_buckets_plain(*args, 2)))
+    coords = got.permute(2, 3, 0, 1, 4).reshape(4, 20, -1)
+    assert coords[:, 0].tolist() == [[v] * coords.shape[-1] for v in (0, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("n,slots", [(1, 1), (13, 1), (13, 4), (33, 8), (300, 256)])
+def test_msm_kernel_products_count_team_additions(host_msm, host_msm_lib, capfd, n, slots):
+    """msm_kernel_products is the host build's count of team additions
+    (zero digits and lanes past B included) times 8 multiplications of 100
+    products; at S = 256 every warp's teams share a window class, so the
+    kernel runs one addition for each of the 97 digit rows of every lane
+    slot step."""
+    zeros = torch.zeros((MSM.NWIN, n), dtype=torch.int32)
+    ident = torch.cat(PT.identity_niels_affine(n, "cpu"))
+    host_msm(zeros, zeros[: MSM.ZWIN], ident, ident, slots)
+    _no_sanitizer_report(capfd)
+    adds = host_msm_lib.fdt_msm_adds_host()
+    assert adds == MSM.msm_kernel_steps(n, slots)
+    assert MSM.msm_kernel_products(n, slots) == adds * 8 * 100
+    steps = -(-n // slots)
+    assert MSM.msm_kernel_steps(256 * steps, 256) == 97 * 256 * steps
+    assert MSM.msm_kernel_products(4096) == 97 * 4096 * 800
 
 
 # ---------------------------------------------------------------------------
