@@ -44,6 +44,30 @@ candidates of 1024 account bits.  Phases, one JSON line each:
                lane slots on the valid batch, the kernel held against its
                plain version and the batch verdict checked at each S
 
+and the rest of ops/, each at the size its users run:
+
+  sha256       the corpus's 4096 messages through sha256 (the
+               fdt_sha256_blocks kernel), every lane held against hashlib;
+               the 32- and 64-byte word forms on 4096 lanes; the kernel
+               against sha256_blocks_plain on all lanes
+  poh          one slot built with hashlib on the host: 64 ticks of 12,500
+               hashes in 1,024 entries (15 mixin entries and one tick entry
+               per tick), verified by verify_entries (the fdt_poh_chain
+               kernel), every end state held against the host chain; one
+               lane appended 12,500 times against hashlib (and timed: the
+               cycles of one dependent compression, the chain floor); the
+               kernel against poh_chain_plain on all lanes at max_hashcnt
+               64; the SASS instructions of one compression of each kernel
+  reedsol      128 full 32:32 FEC sets side by side (4,096 data shreds of
+               the 1,019-byte coded width) encoded and held against
+               _encode_host; recovered from three seeded 32-row losses (one
+               keeps only parity rows); 31 survivors give None
+  sign         sign_many over 4096 distinct keys and messages, every
+               signature held against golden.sign
+  keccak_blake3  keccak256 of the corpus's 4096 messages (256 seeded lanes
+               against digest_host), blake3 of 4096 messages of 0-1024
+               bytes (256 lanes against the CPU run, the empty-input vector)
+
 then a `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits 2.
@@ -87,6 +111,22 @@ INT32_MAD_PER_S = 67e12 / 2 / 2
 WIDE_MAD_PER_S = INT32_MAD_PER_S / 2
 #: csrc/msm.cu's kernel, as cuobjdump names it
 MSM_KERNEL_SYMBOL = "_Z18msm_buckets_kernelPKiS0_S0_S0_Piii"
+# 32-bit integer add, logic and shift instructions issue at 64 per clock per
+# SM on compute capability 9.0 (the throughput table of NVIDIA's CUDA C++
+# Programming Guide), the IMAD rate: 132 SMs at 1.98 GHz.  The SHA-256
+# kernels' bounds count the instructions of their SASS at this rate.
+INT32_OPS_PER_S = INT32_MAD_PER_S
+#: a slot: 64 ticks of Agave's DEFAULT_HASHES_PER_TICK (2,000,000 hashes/s
+#: over 160 ticks/s), 16 entries per tick (15 with a mixin, then the tick)
+SLOT_TICKS, HASHES_PER_TICK, ENTRIES_PER_TICK = 64, 12_500, 16
+#: the hash count at which the PoH kernel is held against its plain version
+POH_PLAIN_MAX = 64
+#: full 32:32 FEC sets of 31,200 payload bytes: each shred's coded width is
+#: the shredder's parity payload at Merkle depth 6 (disco/shredder.py:
+#: 1115 - 20 * 6 + 88 - 0x40 = 1,019 bytes)
+FEC_SETS, FEC_DATA, FEC_WIDTH = 128, 32, 1019
+#: lanes held against the host oracles (keccak256, blake3)
+CHECK_LANES = 256
 
 
 def layout():
@@ -112,6 +152,14 @@ def nvidia_smi_line() -> str:
 # ---------------------------------------------------------------------------
 # corpus (host side, seeded)
 # ---------------------------------------------------------------------------
+
+
+def _golden_sign_chunk(items):
+    """Worker: golden.sign of (secret, message) pairs."""
+    sys.path.insert(0, ROOT)
+    from firedancer_tpu_torch.ops.ed25519 import golden
+
+    return [golden.sign(sk, m) for sk, m in items]
 
 
 def _sign_chunk(job):
@@ -500,6 +548,342 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+# ---------------------------------------------------------------------------
+# the rest of ops/: PoH, SHA-256, Reed-Solomon, signing, Keccak-256, BLAKE3
+# ---------------------------------------------------------------------------
+
+BLAKE3_EMPTY = "af1349b9f5f9a1a6a0404dea36dcc9499bcb25c9adc112b7cc9a93cae41f3262"
+
+
+def words_max_err(a, b) -> int:
+    """Largest |difference| of two word tensors."""
+    return int((a.cpu() - b.cpu()).abs().max()) if a.numel() else 0
+
+
+def sha_bound(compressions: int, instructions: int, nbytes_: int) -> dict:
+    """The least time of a SHA-256 kernel's work: the compressions these
+    inputs need times the SASS instructions of one compression, at
+    INT32_OPS_PER_S, against its bytes at the memory rate."""
+    ops = compressions * instructions
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
+    return {"compressions": compressions, "instructions_per_compression": instructions,
+            "int32_ops": ops, "int32_ops_per_s": INT32_OPS_PER_S, "ops_ms": ops_ms,
+            "bytes": nbytes_, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def max_sm_clock_mhz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def poh_slot(seed: int):
+    """One slot built on the host with hashlib: SLOT_TICKS tick intervals of
+    HASHES_PER_TICK hashes, each ENTRIES_PER_TICK - 1 mixin entries (hash
+    counts cut at seeded points) and one tick entry that completes the
+    interval.  -> starts, hashcnts, mixins, has_mixin, ends (numpy)."""
+    rng = np.random.default_rng(seed)
+    per = ENTRIES_PER_TICK
+    n = SLOT_TICKS * per
+    mixins = rng.integers(0, 256, (n, 32), np.uint8)
+    has = np.tile(np.arange(per) < per - 1, SLOT_TICKS)
+    hashcnts = np.zeros(n, np.int32)
+    for t in range(SLOT_TICKS):
+        cuts = np.sort(rng.choice(np.arange(1, HASHES_PER_TICK), per - 1, replace=False))
+        hashcnts[t * per:(t + 1) * per] = np.diff(
+            np.concatenate([[0], cuts, [HASHES_PER_TICK]]))
+    starts = np.zeros((n, 32), np.uint8)
+    ends = np.zeros((n, 32), np.uint8)
+    st = rng.bytes(32)
+    sha = hashlib.sha256
+    for i in range(n):
+        starts[i] = np.frombuffer(st, np.uint8)
+        for _ in range(int(hashcnts[i]) - int(has[i])):
+            st = sha(st).digest()
+        if has[i]:
+            st = sha(st + mixins[i].tobytes()).digest()
+        ends[i] = np.frombuffer(st, np.uint8)
+    return starts, hashcnts, mixins, has, ends
+
+
+def phase_poh(dev, put, per_compression: int) -> dict:
+    """The PoH path (verify_entries over one slot, launch count from 0), the
+    kernel against its plain version, times and the chain floor; -> the
+    kernel's row of the kernels line."""
+    import torch
+
+    from firedancer_tpu_torch.ops import poh as POH
+    from firedancer_tpu_torch.ops import sha256 as SHA
+
+    t0 = time.time()
+    starts, hcs, mixins, has, ends = poh_slot(2029)
+    host_s = time.time() - t0
+    SHA.LAUNCHES["poh_chain"] = 0
+    got = POH.verify_entries(starts, hcs, mixins, has, HASHES_PER_TICK, device=dev)
+    sync()
+    launches = SHA.LAUNCHES["poh_chain"]
+    got = got.cpu().numpy()
+    if not np.array_equal(got, ends) or not np.array_equal(got[:-1], starts[1:]):
+        raise AssertionError("verify_entries differs from the host chain")
+    if launches < 1:
+        raise AssertionError("verify_entries did not launch fdt_poh_chain")
+
+    # one lane appended HASHES_PER_TICK times: hashlib, and the time of one
+    # dependent compression
+    ref = starts[0].tobytes()
+    for _ in range(HASHES_PER_TICK):
+        ref = hashlib.sha256(ref).digest()
+    if POH.append_n(starts[:1], HASHES_PER_TICK, device=dev).cpu().numpy()[0].tobytes() != ref:
+        raise AssertionError("append_n differs from hashlib")
+    w, m = SHA.words_from_bytes(put(starts)), SHA.words_from_bytes(put(mixins))
+    has_d, hc_d = put(has), put(hcs)
+    one = (w[:1], torch.full((1,), HASHES_PER_TICK, dtype=torch.int32, device=dev),
+           m[:1], torch.zeros(1, dtype=torch.bool, device=dev))
+    one_ms = cuda_ms(lambda: SHA.poh_chain(*one), reps=5)
+    ns_per = one_ms * 1e6 / HASHES_PER_TICK
+
+    # the kernel against its plain version on every lane at POH_PLAIN_MAX
+    small = put(hcs % (POH_PLAIN_MAX + 1))
+    n_small = torch.where(has_d, small - 1, small)
+    ker = SHA.poh_chain(w, n_small, m, has_d)
+    plain = SHA.poh_chain_plain(w, n_small, m, has_d)
+    sync()
+    err = words_max_err(ker, plain)
+    if err != 0:
+        raise AssertionError("poh_chain disagrees with poh_chain_plain")
+
+    n_full = torch.where(has_d, hc_d - 1, hc_d)
+    ms = {
+        "poh_chain": cuda_ms(lambda: SHA.poh_chain(w, n_full, m, has_d), reps=5),
+        "verify_entries": cuda_ms(lambda: POH.verify_entries(
+            starts, hcs, mixins, has, HASHES_PER_TICK, device=dev), reps=3),
+        "poh_chain_at_plain_size": cuda_ms(lambda: SHA.poh_chain(w, n_small, m, has_d), reps=5),
+        "poh_chain_plain_at_plain_size": cuda_ms(
+            lambda: SHA.poh_chain_plain(w, n_small, m, has_d), reps=1, warmup=0),
+        "one_lane_chain": one_ms,
+    }
+    lane_comps = n_full.clamp(min=0) + 2 * has_d.to(torch.int32)
+    bd = sha_bound(int(lane_comps.sum()), per_compression, len(hcs) * (32 + 4 + 32 + 1 + 32))
+    mhz = max_sm_clock_mhz()
+    bd["chain_floor_ms"] = int(lane_comps.max()) * ns_per * 1e-6
+    bd["bound_share"] = bd["bound_ms"] / ms["poh_chain"]
+    bd["chain_floor_share"] = bd["chain_floor_ms"] / ms["poh_chain"]
+    emit({"phase": "poh", "entries": len(hcs), "hashes": int(hcs.sum()),
+          "max_hashcnt": HASHES_PER_TICK, "host_chain_seconds": host_s,
+          "end_states_match_host_chain": True, "linked": True,
+          "append_n_matches_hashlib": True, "poh_chain_launches": launches,
+          "kernel_vs_plain": {"max_hashcnt": POH_PLAIN_MAX, "lanes": len(hcs),
+                              "max_abs_err": err},
+          "ms": ms, "ns_per_dependent_compression": ns_per,
+          "cycles_per_dependent_compression_at_max_sm_clock": ns_per * mhz / 1e3,
+          "max_sm_clock_mhz": mhz, "hashes_per_s": int(hcs.sum()) / ms["poh_chain"] * 1e3,
+          "bound": bd, "card": nvidia_smi_line()})
+    return {"name": "poh_chain", "route": "cuda",
+            "source": "firedancer_tpu_torch/csrc/sha256.cu",
+            "replaces": "firedancer_tpu/ops/poh.py:54", "launches": launches,
+            "max_abs_err": err, "ms": ms["poh_chain"],
+            "plain_ms": ms["poh_chain_plain_at_plain_size"],
+            "plain_at": f"max_hashcnt {POH_PLAIN_MAX}, all lanes",
+            "ms_at_plain_size": ms["poh_chain_at_plain_size"],
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"], "library_ms": None,
+            "chain_floor_ms": bd["chain_floor_ms"], "ns_per_compression": ns_per}
+
+
+def phase_sha256(dev, put, bt, per_compression: int, ns_per: float) -> dict:
+    """sha256 over the corpus's messages (launch count from 0), the word
+    forms, the kernel against its plain version and times; -> the kernel's
+    row of the kernels line."""
+    from firedancer_tpu_torch.ops import sha256 as SHA
+
+    msgs, lens = bt["msgs"], bt["lens"]
+    n = len(lens)
+    SHA.LAUNCHES["sha256_blocks"] = 0
+    got = SHA.sha256(msgs, lens, device=dev)
+    sync()
+    launches = SHA.LAUNCHES["sha256_blocks"]
+    got = got.cpu().numpy()
+    if [got[i].tobytes() for i in range(n)] != [
+            hashlib.sha256(msgs[i, : lens[i]].tobytes()).digest() for i in range(n)]:
+        raise AssertionError("sha256 differs from hashlib")
+    if launches < 1:
+        raise AssertionError("sha256 did not launch fdt_sha256_blocks")
+    rng = np.random.default_rng(2028)
+    for width, fn in ((32, SHA.sha256_words32), (64, SHA.sha256_words64)):
+        b = rng.integers(0, 256, (n, width), np.uint8)
+        out = SHA.bytes_from_words(fn(SHA.words_from_bytes(put(b)), device=dev)).cpu().numpy()
+        if any(out[i].tobytes() != hashlib.sha256(b[i].tobytes()).digest() for i in range(n)):
+            raise AssertionError(f"sha256_words{width} differs from hashlib")
+
+    msgs_d, lens_d = put(msgs), put(lens.astype(np.int64))
+    words, nblocks = SHA.padded_words(msgs_d, lens_d)
+    ker = SHA.sha256_blocks(words, nblocks)
+    plain = SHA.sha256_blocks_plain(words, nblocks)
+    sync()
+    err = words_max_err(ker, plain)
+    if err != 0:
+        raise AssertionError("sha256_blocks disagrees with sha256_blocks_plain")
+    ms = {
+        "sha256_blocks": cuda_ms(lambda: SHA.sha256_blocks(words, nblocks), reps=20),
+        "sha256_blocks_plain": cuda_ms(
+            lambda: SHA.sha256_blocks_plain(words, nblocks), reps=1, warmup=0),
+        "sha256": cuda_ms(lambda: SHA.sha256(msgs_d, lens_d, device=dev), reps=5),
+    }
+    total = int(nblocks.sum())
+    bd = sha_bound(total, per_compression, total * 64 + n * (4 + 32))
+    bd["chain_floor_ms"] = int(nblocks.max()) * ns_per * 1e-6
+    bd["bound_share"] = bd["bound_ms"] / ms["sha256_blocks"]
+    emit({"phase": "sha256", "lanes": n, "width": msgs.shape[1],
+          "all_lanes_match_hashlib": True, "words32_words64_lanes": n,
+          "sha256_blocks_launches": launches, "max_abs_err": err, "ms": ms,
+          "digests_per_s": n / ms["sha256"] * 1e3, "bound": bd, "card": nvidia_smi_line()})
+    return {"name": "sha256_blocks", "route": "cuda",
+            "source": "firedancer_tpu_torch/csrc/sha256.cu",
+            "replaces": "firedancer_tpu/ops/sha256.py:49", "launches": launches,
+            "max_abs_err": err, "ms": ms["sha256_blocks"],
+            "plain_ms": ms["sha256_blocks_plain"], "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "library_ms": None,
+            "chain_floor_ms": bd["chain_floor_ms"]}
+
+
+def phase_reedsol(dev, put) -> None:
+    """FEC_SETS full 32:32 sets side by side: encode against _encode_host,
+    recovery from three seeded 32-row losses, and 31 survivors."""
+    from firedancer_tpu_torch.ops import reedsol as RS
+
+    rng = np.random.default_rng(2030)
+    n = FEC_SETS * FEC_WIDTH
+    total = 2 * FEC_DATA
+    data = rng.integers(0, 256, (FEC_DATA, n), np.uint8)
+    t0 = time.time()
+    want = RS._encode_host(data, FEC_DATA)
+    host_s = time.time() - t0
+    data_d = put(data)
+    if not np.array_equal(RS.encode(data_d, FEC_DATA, device=dev).cpu().numpy(), want):
+        raise AssertionError("encode differs from _encode_host")
+    shreds = np.concatenate([data, want])
+    patterns = {}
+    for name in ("random_a", "random_b", "parity_only"):
+        present = np.ones(total, bool)
+        lost = (np.arange(FEC_DATA) if name == "parity_only"
+                else rng.choice(total, FEC_DATA, replace=False))
+        present[lost] = False
+        patterns[name] = present
+        garbage = shreds.copy()
+        garbage[~present] = 0xA5
+        got = RS.recover(put(garbage), present, FEC_DATA, device=dev)
+        if got is None or not np.array_equal(got.cpu().numpy(), data):
+            raise AssertionError(f"recover ({name}) does not give back the data")
+    partial = np.zeros(total, bool)
+    partial[rng.choice(total, FEC_DATA - 1, replace=False)] = True
+    shreds_d = put(shreds)
+    if RS.recover(shreds_d, partial, FEC_DATA, device=dev) is not None:
+        raise AssertionError("recover with 31 survivors did not return None")
+    ms = {"encode": cuda_ms(lambda: RS.encode(data_d, FEC_DATA, device=dev), reps=5),
+          "recover": cuda_ms(lambda: RS.recover(
+              shreds_d, patterns["parity_only"], FEC_DATA, device=dev), reps=3)}
+    emit({"phase": "reedsol", "fec_sets": FEC_SETS, "data_shreds": FEC_SETS * FEC_DATA,
+          "coded_width": FEC_WIDTH, "encode_matches_host": True,
+          "recovered": sorted(patterns), "partial_returns_none": True,
+          "host_encode_seconds": host_s, "ms": ms,
+          "encode_data_bytes_per_s": data.nbytes / ms["encode"] * 1e3,
+          "matmul_dtype": str(RS.MATMUL_DTYPE), "card": nvidia_smi_line()})
+
+
+def phase_sign(dev, bt) -> None:
+    """sign_many over B distinct keys and messages, every signature held
+    against golden.sign (in a pool of host processes)."""
+    from firedancer_tpu_torch.ops.ed25519 import sign as SIGN
+
+    rng = np.random.default_rng(2031)
+    n = len(bt["lens"])
+    pairs = [(rng.bytes(32), bt["msgs"][i, : bt["lens"][i]].tobytes()) for i in range(n)]
+    sync()
+    t0 = time.time()
+    sigs = SIGN.sign_many(pairs, device=dev)
+    sign_s = time.time() - t0
+    # the device step alone, on n canonical scalars (the signatures' S)
+    scalars = torch_from(np.stack([np.frombuffer(s[32:], np.uint8) for s in sigs]), dev)
+    base_ms = cuda_ms(lambda: SIGN._base_mul_compress(scalars), reps=1)
+    procs = min(8, os.cpu_count() or 1)
+    t0 = time.time()
+    with multiprocessing.get_context("spawn").Pool(procs) as pool:
+        parts = pool.map(_golden_sign_chunk, [pairs[i::procs] for i in range(procs)])
+    golden_s = time.time() - t0
+    want = [None] * n
+    for i, part in enumerate(parts):
+        want[i::procs] = part
+    if sigs != want:
+        raise AssertionError("sign_many differs from golden.sign")
+    emit({"phase": "sign", "lanes": n, "distinct_keys": len({p[0] for p in pairs}),
+          "all_match_golden": True, "sign_many_seconds": sign_s,
+          "signs_per_s": n / sign_s, "base_mul_compress_ms": base_ms,
+          "golden_seconds": golden_s, "golden_processes": procs,
+          "card": nvidia_smi_line()})
+
+
+def torch_from(a, dev):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def phase_keccak_blake3(dev, put, bt) -> None:
+    """keccak256 and blake3 of B messages on the card, CHECK_LANES seeded
+    lanes held against digest_host and the CPU run; BLAKE3's empty input."""
+    from firedancer_tpu_torch.ops import blake3 as B3
+    from firedancer_tpu_torch.ops import keccak256 as KK
+
+    msgs, lens = bt["msgs"], bt["lens"]
+    n = len(lens)
+    lanes = np.random.default_rng(2032).choice(n, CHECK_LANES, replace=False)
+    msgs_d, lens_d = put(msgs), put(lens.astype(np.int64))
+    k = KK.keccak256(msgs_d, lens_d, device=dev).cpu().numpy()
+    for i in lanes:
+        if k[i].tobytes() != KK.digest_host(msgs[i, : lens[i]].tobytes()):
+            raise AssertionError(f"keccak256 lane {i} differs from digest_host")
+    rng = np.random.default_rng(2033)
+    bl = rng.integers(0, B3.CHUNK_LEN + 1, n)
+    bl[:2] = [0, B3.CHUNK_LEN]
+    bm = msgs[:, : B3.CHUNK_LEN].copy()
+    bm[np.arange(B3.CHUNK_LEN)[None, :] >= bl[:, None]] = 0
+    bm_d, bl_d = put(bm), put(bl)
+    b3 = B3.blake3(bm_d, bl_d, device=dev).cpu().numpy()
+    if b3[0].tobytes().hex() != BLAKE3_EMPTY:
+        raise AssertionError("blake3 of the empty input differs from the published digest")
+    if not np.array_equal(b3[lanes], B3.blake3(bm[lanes], bl[lanes], device="cpu").numpy()):
+        raise AssertionError("blake3 on the card differs from the CPU run")
+    ms = {"keccak256": cuda_ms(lambda: KK.keccak256(msgs_d, lens_d, device=dev), reps=3),
+          "blake3": cuda_ms(lambda: B3.blake3(bm_d, bl_d, device=dev), reps=3)}
+    emit({"phase": "keccak_blake3", "lanes": n, "keccak_width": msgs.shape[1],
+          "blake3_width": B3.CHUNK_LEN, "lanes_checked": CHECK_LANES,
+          "keccak_matches_digest_host": True, "blake3_matches_cpu": True,
+          "blake3_empty_vector": True, "ms": ms,
+          "hashes_per_s": {name: n / t * 1e3 for name, t in ms.items()},
+          "card": nvidia_smi_line()})
+
+
+def run_rest(dev, batches) -> list:
+    """The phases of the rest of ops/; -> the kernels line's rows of the two
+    SHA-256 kernels."""
+    from firedancer_tpu_torch.utils import kbuild
+
+    put = lambda a: torch_from(a, dev)  # noqa: E731
+    sass = kbuild.sass("sha256")
+    per = {k: loop_counts(sass, k) for k in ("fdt_sha256_blocks", "fdt_poh_chain")}
+    emit({"phase": "sha256_sass", "compression_loops": per})
+    poh_row = phase_poh(dev, put, per["fdt_poh_chain"]["instructions"])
+    sha_row = phase_sha256(dev, put, batches[0], per["fdt_sha256_blocks"]["instructions"],
+                           poh_row.pop("ns_per_compression"))
+    phase_reedsol(dev, put)
+    phase_sign(dev, batches[1])
+    phase_keccak_blake3(dev, put, batches[0])
+    return [sha_row, poh_row]
+
+
 def run(dev) -> dict:
     """Every phase on `dev`; -> the final result object.  Raises on any
     failure."""
@@ -515,7 +899,7 @@ def run(dev) -> dict:
     from firedancer_tpu_torch.utils import kbuild
 
     t_start = time.time()
-    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    put = lambda a: torch_from(a, dev)  # noqa: E731
 
     # -- 1. device ----------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -852,6 +1236,8 @@ def run(dev) -> dict:
             "msm_finalize_ms": cuda_ms(lambda: MSM.msm_finalize(bk, ph["udig"]), reps=3)}
     emit({"phase": "lanes_sweep", "sweep": sweep, "card": smi})
 
+    rest = run_rest(dev, batches)
+
     src = "firedancer_tpu_torch/csrc/"
     tpu = "firedancer_tpu/ops/ed25519/"
     rows = [
@@ -867,7 +1253,7 @@ def run(dev) -> dict:
         "ms": ms[name], "plain_ms": ms[name + "_plain"],
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
         "library_ms": None,
-    } for name, file, where, n, err in rows]})
+    } for name, file, where, n, err in rows] + rest})
     print(nvidia_smi_line(), flush=True)
     return {"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),

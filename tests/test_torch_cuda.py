@@ -17,6 +17,12 @@ import pytest
 import torch
 
 from firedancer_tpu_torch.models import pipeline as PL
+from firedancer_tpu_torch.ops import blake3 as B3
+from firedancer_tpu_torch.ops import keccak256 as KK
+from firedancer_tpu_torch.ops import poh as POH
+from firedancer_tpu_torch.ops import reedsol as RS
+from firedancer_tpu_torch.ops import sha256 as SHA
+from firedancer_tpu_torch.ops.ed25519 import sign as SIGN
 from firedancer_tpu_torch.ops.ed25519 import field as F
 from firedancer_tpu_torch.ops.ed25519 import golden, hostpath
 from firedancer_tpu_torch.ops.ed25519 import msm as MSM
@@ -92,7 +98,7 @@ def _core_inputs(n: int):
 
 
 def test_kernel_builds(dev):
-    names = ["decompress_niels", "msm", "verify_core"]
+    names = ["decompress_niels", "msm", "sha256", "verify_core"]
     assert kbuild.build_all() == names
     for name in names:
         assert kbuild.library_path(name).exists()
@@ -308,3 +314,95 @@ def test_rlc_on_card_matches_cpu(dev):
     after = dict(MSM.LAUNCHES, verify_core=VC.LAUNCHES)
     assert {k: after[k] - before[k] for k in after} == {
         "decompress_niels": 1, "msm_buckets": 1, "verify_core": 1}
+
+
+# ---------------------------------------------------------------------------
+# SHA-256, PoH and the plain-torch ops of the rest of ops/
+# ---------------------------------------------------------------------------
+
+
+def _sha_batch(n: int, width: int):
+    rng = np.random.default_rng(n + width)
+    lens = rng.integers(0, width + 1, n)
+    lens[: min(n, 4)] = [0, min(55, width), min(56, width), width][: min(n, 4)]
+    msgs = rng.integers(0, 256, (n, width), np.uint8)
+    msgs[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return msgs, lens
+
+
+@pytest.mark.parametrize("n,width", [(1, 0), (13, 64), (300, 1232), (4096, 200)])
+def test_sha256_blocks_kernel_matches_plain_and_hashlib(dev, n, width):
+    msgs, lens = _sha_batch(n, width)
+    words, nblocks = SHA.padded_words(torch.from_numpy(msgs), torch.from_numpy(lens))
+    before = SHA.LAUNCHES["sha256_blocks"]
+    got = SHA.sha256_blocks(words.to(dev), nblocks.to(dev))
+    assert SHA.LAUNCHES["sha256_blocks"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  SHA.sha256_blocks_plain(words, nblocks).numpy())
+    digests = SHA.sha256(msgs, lens).cpu().numpy()  # device=None: the card
+    for i in range(0, n, max(1, n // 64)):
+        assert digests[i].tobytes() == hashlib.sha256(msgs[i, : lens[i]].tobytes()).digest()
+
+
+@pytest.mark.parametrize("n", [1, 33, 1024])
+def test_poh_chain_kernel_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    state = torch.from_numpy(rng.integers(0, 1 << 32, (n, 8), np.int64))
+    mixin = torch.from_numpy(rng.integers(0, 1 << 32, (n, 8), np.int64))
+    n_plain = torch.from_numpy(rng.integers(-1, 9, n).astype(np.int32))
+    has = torch.from_numpy(rng.integers(0, 2, n).astype(bool))
+    before = SHA.LAUNCHES["poh_chain"]
+    got = SHA.poh_chain(*(t.to(dev) for t in (state, n_plain, mixin, has)))
+    assert SHA.LAUNCHES["poh_chain"] == before + 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), SHA.poh_chain_plain(state, n_plain, mixin, has).numpy())
+
+
+def test_poh_entry_points_on_card(dev):
+    rng = np.random.default_rng(3)
+    st = rng.integers(0, 256, (5, 32), np.uint8)
+    mx = rng.integers(0, 256, (5, 32), np.uint8)
+    ref = st[0].tobytes()
+    for _ in range(100):
+        ref = hashlib.sha256(ref).digest()
+    assert POH.append_n(st[:1], 100).cpu().numpy()[0].tobytes() == ref
+    np.testing.assert_array_equal(POH.mixin(st, mx).cpu().numpy(),
+                                  POH.mixin(st, mx, device="cpu").numpy())
+    hc = np.array([0, 0, 1, 5, 9], np.int32)
+    has = np.array([True, False, True, False, True])
+    np.testing.assert_array_equal(
+        POH.verify_entries(st, hc, mx, has, 9).cpu().numpy(),
+        POH.verify_entries(st, hc, mx, has, 9, device="cpu").numpy())
+    w = SHA.words_from_bytes(torch.from_numpy(st))
+    np.testing.assert_array_equal(SHA.sha256_words32(w).cpu().numpy(),
+                                  SHA.sha256_words32(w, device="cpu").numpy())
+
+
+def test_sha_kernel_wrappers_reject_bad_inputs(dev):
+    words = torch.zeros((2, 3, 15), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        SHA.sha256_blocks(words, torch.zeros(2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="shape"):
+        SHA.poh_chain(torch.zeros((2, 8), dtype=torch.int64, device=dev),
+                      torch.zeros(3, dtype=torch.int32, device=dev),
+                      torch.zeros((2, 8), dtype=torch.int64, device=dev),
+                      torch.zeros(2, dtype=torch.bool, device=dev))
+
+
+def test_plain_ops_on_card_match_cpu(dev):
+    """Reed-Solomon, Keccak-256, BLAKE3 and signing: the card's run of the
+    plain-torch code equals the CPU's."""
+    rng = np.random.default_rng(9)
+    data = rng.integers(0, 256, (67, 300), np.uint8)
+    np.testing.assert_array_equal(RS.encode(data, 67).cpu().numpy(), RS._encode_host(data, 67))
+    shreds = np.concatenate([data[:32], RS._encode_host(data[:32], 32)])
+    present = np.ones(64, bool)
+    present[:32] = False
+    np.testing.assert_array_equal(RS.recover(shreds, present, 32).cpu().numpy(), data[:32])
+    msgs, lens = _sha_batch(40, 1024)
+    np.testing.assert_array_equal(KK.keccak256(msgs, lens).cpu().numpy(),
+                                  KK.keccak256(msgs, lens, device="cpu").numpy())
+    np.testing.assert_array_equal(B3.blake3(msgs, lens).cpu().numpy(),
+                                  B3.blake3(msgs, lens, device="cpu").numpy())
+    pairs = [(bytes([i]) * 32, b"msg %d" % i) for i in range(6)]
+    assert SIGN.sign_many(pairs) == [hostpath.sign(s, m) for s, m in pairs]

@@ -37,17 +37,35 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_has_files():
     names = {p.name for p in PORT_FILES}
-    for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py"):
+    for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py",
+                 "sha256.py", "poh.py", "gf256.py", "reedsol.py", "sign.py",
+                 "keccak256.py", "blake3.py"):
         assert want in names
 
 
 def _entry_calls():
     from firedancer_tpu_torch.models import pipeline as PL
-    from firedancer_tpu_torch.ops import pack_select
+    from firedancer_tpu_torch.ops import blake3, keccak256, pack_select, poh, reedsol, sha256
+    from firedancer_tpu_torch.ops.ed25519 import sign
     from firedancer_tpu_torch.ops.ed25519 import verify as V
 
     z = np.zeros
+    key = bytes(32)
     return {
+        "sha256": lambda: sha256.sha256(z((2, 8), np.uint8), z(2, np.int32)),
+        "sha256_words32": lambda: sha256.sha256_words32(z((2, 8), np.int64)),
+        "sha256_words64": lambda: sha256.sha256_words64(z((2, 16), np.int64)),
+        "append_n": lambda: poh.append_n(z((2, 32), np.uint8), 3),
+        "mixin": lambda: poh.mixin(z((2, 32), np.uint8), z((2, 32), np.uint8)),
+        "verify_entries": lambda: poh.verify_entries(
+            z((2, 32), np.uint8), z(2, np.int32), z((2, 32), np.uint8), z(2, bool), 4),
+        "encode": lambda: reedsol.encode(z((2, 8), np.uint8), 2),
+        "recover": lambda: reedsol.recover(z((4, 8), np.uint8), np.ones(4, bool), 2),
+        "public_keys": lambda: sign.public_keys([key]),
+        "sign_many": lambda: sign.sign_many([(key, b"m")]),
+        "sign_batch": lambda: sign.sign_batch(key, [b"m"]),
+        "keccak256": lambda: keccak256.keccak256(z((2, 8), np.uint8), z(2, np.int32)),
+        "blake3": lambda: blake3.blake3(z((2, 8), np.uint8), z(2, np.int32)),
         "verify_batch": lambda: V.verify_batch(
             z((2, 8), np.uint8), z(2, np.int32), z((2, 64), np.uint8),
             z((2, 32), np.uint8)),
@@ -65,11 +83,14 @@ def _entry_calls():
     }
 
 
-ENTRY_POINTS = [
+ENTRY_POINTS = sorted([
     "AgingBloom", "fresh_bloom", "make_step", "select_noconflict",
     "verify_batch", "verify_batch_digest", "verify_batch_digest_on",
     "verify_batch_digest_rlc",
-]
+    "sha256", "sha256_words32", "sha256_words64", "append_n", "mixin",
+    "verify_entries", "encode", "recover", "public_keys", "sign_many",
+    "sign_batch", "keccak256", "blake3",
+])
 
 
 def test_entry_point_list_is_complete():
