@@ -68,6 +68,24 @@ and the rest of ops/, each at the size its users run:
                against digest_host), blake3 of 4096 messages of 0-1024
                bytes (256 lanes against the CPU run, the empty-input vector)
 
+and the multi-device layer:
+
+  dist_step    the step as the one rank of an NCCL group (dp = mp = 1) on the
+               corpus batches: keep, metrics and every filter word equal to
+               the single-card step's; batch 1 run twice on the same buffers
+               gives the same answer (a pool's resubmit); ms per step beside
+               the single-card step, and the step's fresh 32 MiB filter copy
+  pool         run_verify_pool over local_device_count() CUDA domains, eight
+               4096-lane corpus batches in the digest form: in-order landing,
+               verdicts equal to the direct call, one verify_core launch per
+               batch, no fallback, no device error; then a lone domain that
+               raises on its first dispatch, at 64 lanes: quarantined, and
+               the pool raises DomainsOut (a card's batch never lands on the
+               host); ms per batch through the pool beside the direct call
+  bench        python -m firedancer_tpu_torch.bench in a subprocess: one JSON
+               line with bench.py's keys
+  configure    the port's device stage, which must report ok
+
 then a `kernels` line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no result.  Without a CUDA device it exits 2.
@@ -884,6 +902,217 @@ def run_rest(dev, batches) -> list:
     return [sha_row, poh_row]
 
 
+# ---------------------------------------------------------------------------
+# the multi-device layer: the dp x mp step, the verify pool, bench, configure
+# ---------------------------------------------------------------------------
+
+#: lanes of the pool's fault-injected run (the host strict path verifies
+#: them, a few ms a lane)
+POOL_FAULT_LANES = 64
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for the process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist_step(dev, batches, single_bloom, keeps, metrics) -> None:
+    """The step as one rank of an NCCL group of one (dp = mp = 1) on the
+    corpus batches, held against the single-card step's keep, metrics and
+    filter (`keeps`, `metrics`, `single_bloom` from the slice phase); batch 1
+    run twice on the same buffers (C-1: a pool's resubmit); the ms per step
+    beside the single-card step, and the cost of the step's fresh filter
+    copy.  NCCL must come up: there is no fallback to gloo or the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from firedancer_tpu_torch.models import pipeline as PL
+    from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
+    from firedancer_tpu_torch.parallel.mesh import init_mesh
+
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        backend = dist.get_backend()
+        mesh = init_mesh(1, 1)
+        step = PL.make_step(dev, mesh)
+        bloom = PL.AgingBloom(dev, capacity=B)  # one batch: forces a rotation
+        VC.LAUNCHES = 0
+        got_keeps, got_metrics, twice = [], [], None
+        for i, bt in enumerate(batches):
+            args = [bt[k] for k in ("msgs", "lens", "sigs", "pubs", "tags2")]
+            keep, cur, met = step(*args, *bloom.buffers())
+            if i == 1:
+                keep2, cur2, met2 = step(*args, *bloom.buffers())
+                twice = (bool(torch.equal(keep, keep2)), bool(torch.equal(met, met2)),
+                         bool(torch.equal(cur, cur2)))
+            bloom.update(cur, met)
+            got_keeps.append(keep.cpu().numpy())
+            got_metrics.append(met.cpu().numpy().tolist())
+        sync()
+        launches = VC.LAUNCHES
+        for i in range(len(batches)):
+            if not np.array_equal(got_keeps[i], keeps[i]) or got_metrics[i] != metrics[i]:
+                raise AssertionError(f"dist step {i}: keep/metrics differ from the "
+                                     f"single-card step ({got_metrics[i]} vs {metrics[i]})")
+        if twice != (True, True, True):
+            raise AssertionError(f"a batch run twice on the same buffers differs: {twice}")
+        filter_equal = all(bool(torch.equal(a, b)) for a, b in
+                           zip(bloom.buffers(), single_bloom.buffers()))
+        if not filter_equal or (bloom.inserted, bloom.rotations) != (
+                single_bloom.inserted, single_bloom.rotations) or bloom.rotations < 1:
+            raise AssertionError("the dist step's filter differs from the single-card "
+                                 f"step's (rotations {bloom.rotations})")
+        if launches < len(batches) + 1:
+            raise AssertionError(f"verify_core launched {launches} times")
+
+        bt = batches[2]
+        t = {k: torch_from(bt[k], dev) for k in ("msgs", "sigs", "pubs")}
+        lens_d = torch_from(bt["lens"].astype(np.int64), dev)
+        tags_d = torch_from(bt["tags2"].astype(np.int64), dev)
+        single = PL.make_step(dev)
+        cur_d, prev_d = PL.fresh_bloom(dev), PL.fresh_bloom(dev)
+        ins = (t["msgs"], lens_d, t["sigs"], t["pubs"], tags_d, cur_d, prev_d)
+        ms = {}
+        for name in ("single", "dist", "dist", "single"):  # in turns
+            fn = single if name == "single" else step
+            ms.setdefault(name, []).append(cuda_ms(lambda: fn(*ins), reps=2, warmup=0))
+        ms = {f"step_{k}": statistics.median(v) for k, v in ms.items()}
+        ms["fresh_filter_copy"] = cuda_ms(lambda: cur_d.clone(), reps=20)
+        ok_d = torch.ones(B, dtype=torch.bool, device=dev)
+        ms["dedup_single"] = cuda_ms(lambda: PL.dedup(ok_d, tags_d, cur_d, prev_d), reps=5)
+        ms["dedup_dist"] = cuda_ms(
+            lambda: PL.dedup(ok_d, tags_d, cur_d, prev_d, mesh), reps=5)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "dist_step", "backend": backend, "dp": 1, "mp": 1, "lanes": B,
+          "steps": len(batches), "metrics": got_metrics, "rotations": bloom.rotations,
+          "matches_single_card": True, "filter_words_equal": filter_equal,
+          "run_twice_same_answer": True, "verify_core_launches": launches,
+          "filter_copy_bytes": cur_d.numel() * 4, "ms": ms, "card": nvidia_smi_line(),
+          "seconds": time.time() - t0})
+
+
+def phase_pool(dev, batches) -> None:
+    """run_verify_pool over local_device_count() CUDA domains on eight corpus
+    batches (the four, twice) in the digest form: in-order landing, every
+    verdict equal to a direct verify_batch_digest, one verify_core launch per
+    batch, no fallback and no device error; then a fault-injected run at
+    small B whose only domain raises on its first dispatch: quarantined, and
+    the pool raises DomainsOut instead of landing the card's batches on the
+    host."""
+    from firedancer_tpu_torch.ops.ed25519 import verify as V
+    from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
+    from firedancer_tpu_torch.parallel import dryrun
+    from firedancer_tpu_torch.tiles import verify as T
+    from firedancer_tpu_torch.utils.devices import local_device_count
+
+    t0 = time.time()
+    n_dom = local_device_count()
+    inputs = [(digests_of(bt), bt["sigs"], bt["pubs"]) for bt in batches]
+    direct = [V.verify_batch_digest(*b, device=dev).cpu().numpy() for b in inputs]
+    pool_batches = inputs * 2
+    fns = dryrun.domain_fns(n_dom, dev, inputs[0])  # warmed: not counted
+    sync()
+    VC.LAUNCHES = 0
+    rep = dryrun.run_verify_pool(n_dom, device=dev, batches=pool_batches, fns=fns)
+    sync()
+    launches = VC.LAUNCHES
+    for i, ok in enumerate(rep["verdicts"]):
+        if not np.array_equal(ok, direct[i % len(inputs)]) or not np.array_equal(
+                ok, batches[i % len(inputs)]["ok"]):
+            raise AssertionError(f"pool batch {i}: verdicts differ from the direct call")
+    if rep["fallback_batches"] or rep["device_errors"]:
+        raise AssertionError(f"pool degraded on healthy cards: {rep}")
+    if launches != len(pool_batches):
+        raise AssertionError(f"verify_core launched {launches} times for "
+                             f"{len(pool_batches)} pool batches")
+
+    def direct_call():
+        V.verify_batch_digest(*inputs[0], device=dev).cpu()
+
+    direct_ms = cuda_ms(direct_call, reps=5)
+
+    small = [tuple(a[:POOL_FAULT_LANES] for a in b) for b in inputs]
+    calls = []
+
+    def first_dispatch_fails(index):
+        calls.append(index)
+        if len(calls) == 1:
+            raise RuntimeError("injected device error")
+
+    try:
+        dryrun.run_verify_pool(1, device=dev, batches=small,
+                               fault_hook=first_dispatch_fails, trip_after=1,
+                               backoff_base_s=300.0, backoff_max_s=300.0)
+    except T.DomainsOut as e:
+        fault = e.counters
+    else:
+        raise AssertionError("the pool landed a quarantined card's batches")
+    if (fault["device_errors"], fault["device_trips"]) != (1, 1) or \
+            fault["fallback_batches"] != 0 or sum(fault["landed"]) != 0:
+        raise AssertionError(f"fault run counters: {fault}")
+    counters = ("landed", *T.POLICY_COUNTERS, "resubmits", "late_results")
+    emit({"phase": "pool", "domains": n_dom, "lanes": B, "batches": len(pool_batches),
+          "in_order": True, "verdicts_match_direct": True,
+          "verify_core_launches": launches,
+          "counters": {k: rep[k] for k in ("seconds", *counters)},
+          "ms_per_batch_pool": rep["seconds"] * 1e3 / len(pool_batches),
+          "ms_direct_call": direct_ms,
+          "fault_injected": {"lanes": POOL_FAULT_LANES, "batches": len(small),
+                             **{k: fault[k] for k in counters},
+                             "quarantined": fault["device_trips"] == 1,
+                             "raised": "DomainsOut"},
+          "card": nvidia_smi_line(), "seconds": time.time() - t0})
+
+
+#: the keys of bench.py's JSON line that the port's bench keeps
+BENCH_KEYS = ("metric", "value", "unit", "n_devices", "per_device")
+
+
+def phase_bench() -> None:
+    """python -m firedancer_tpu_torch.bench in a subprocess: one parseable
+    JSON line with bench.py's keys."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch.bench"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"bench exited {res.returncode}:\n{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} lines")
+    out = json.loads(lines[0])
+    missing = [k for k in BENCH_KEYS if k not in out]
+    if missing or out["metric"] != "ed25519_verifies_per_s_1chip" or out["value"] <= 0:
+        raise AssertionError(f"bench line: missing {missing}, {out}")
+    emit({"phase": "bench", "line": out, "card": nvidia_smi_line(),
+          "seconds": time.time() - t0})
+
+
+def phase_configure(t_start: float) -> None:
+    """The port's device stage: it must report ok on the card."""
+    from firedancer_tpu_torch.app import configure
+
+    r = configure.stage_device()
+    if not r.ok:
+        raise AssertionError(f"configure device stage: {r.detail}")
+    emit({"phase": "configure", "stage": r.name, "ok": r.ok, "detail": r.detail,
+          "seconds_total": time.time() - t_start})
+
+
+def run_multi(dev, batches, single_bloom, keeps, metrics, t_start) -> None:
+    """The phases of the multi-device layer."""
+    phase_dist_step(dev, batches, single_bloom, keeps, metrics)
+    phase_pool(dev, batches)
+    phase_bench()
+    phase_configure(t_start)
+
+
 def run(dev) -> dict:
     """Every phase on `dev`; -> the final result object.  Raises on any
     failure."""
@@ -1237,6 +1466,7 @@ def run(dev) -> dict:
     emit({"phase": "lanes_sweep", "sweep": sweep, "card": smi})
 
     rest = run_rest(dev, batches)
+    run_multi(dev, batches, bloom, keeps, metrics, t_start)
 
     src = "firedancer_tpu_torch/csrc/"
     tpu = "firedancer_tpu/ops/ed25519/"

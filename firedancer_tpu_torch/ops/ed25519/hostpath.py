@@ -1,17 +1,26 @@
-"""Fast host-side Ed25519 signer for building test and benchmark corpora.
+"""Host-side Ed25519: a fast signer for corpora and the strict host verify.
 
-A copy of the signer half of firedancer_tpu/ops/ed25519/hostpath.py
-(`public_from_secret`, `sign`), kept in the port so that
-firedancer_tpu_torch imports nothing of the JAX package.  Group math runs in
-extended homogeneous coordinates (add-2008-hwcd / dbl-2008-hwcd for a = -1)
-with no per-add field inversion, so one signature costs a few milliseconds of
-plain-int arithmetic instead of golden.sign's quarter second; the output
-bytes are identical to golden's.
+A copy of firedancer_tpu/ops/ed25519/hostpath.py (`public_from_secret`,
+`sign`, `_shamir`, `verify_digest`, `verify_batch_digest_host`), kept in the
+port so that firedancer_tpu_torch imports nothing of the JAX package.  Group
+math runs in extended homogeneous coordinates (add-2008-hwcd / dbl-2008-hwcd
+for a = -1) with no per-add field inversion, so one signature or one lane's
+verify costs a few milliseconds of plain-int arithmetic instead of golden's
+quarter second; the outputs are identical to golden's.
+
+verify_batch_digest_host has the device path's behavior contract
+(ops/ed25519/verify.py steps 1-3 and 5, digest form): canonical s, the
+small-order blocklist on the encodings of A and R, decompression,
+cofactorless [k](-A) + [s]B == R.  It is the verify pool's last resort
+(tiles/verify.py) when every device domain is out: a policy of the pool, not
+a fallback of the device entry points, which raise on the card.
 """
 
 from __future__ import annotations
 
 import functools as _functools
+
+import numpy as np
 
 from . import golden
 
@@ -21,6 +30,8 @@ L = golden.L
 
 #: identity in extended homogeneous coordinates (X : Y : Z : T), T = XY/Z
 _IDENT = (0, 1, 1, 0)
+
+_BLOCKLIST = frozenset(golden.small_order_blocklist())
 
 _2D = (2 * D) % P
 
@@ -54,6 +65,22 @@ def _ext_dbl(p):
     f = (g - c) % P
     h = (-a - b) % P
     return (e * f % P, g * h % P, f * g % P, e * h % P)
+
+
+def _shamir(k: int, pk, s: int, ps):
+    """k*pk + s*ps via one interleaved MSB-first ladder."""
+    both = _ext_add(pk, ps)
+    acc = _IDENT
+    for i in range(max(k.bit_length(), s.bit_length()) - 1, -1, -1):
+        acc = _ext_dbl(acc)
+        bk, bs = (k >> i) & 1, (s >> i) & 1
+        if bk and bs:
+            acc = _ext_add(acc, both)
+        elif bk:
+            acc = _ext_add(acc, pk)
+        elif bs:
+            acc = _ext_add(acc, ps)
+    return acc
 
 
 _B_EXT = _ext(golden.B)
@@ -96,3 +123,47 @@ def sign(secret: bytes, msg: bytes) -> bytes:
     k = golden._sha512_int(Rs, A, msg) % L
     s = (r + k * a) % L
     return Rs + int.to_bytes(s, 32, "little")
+
+
+def verify_digest(digest: bytes, sig: bytes, pub: bytes) -> bool:
+    """One lane: digest = SHA512(R || A || M), the k pre-hash."""
+    if len(sig) != 64 or len(pub) != 32 or len(digest) != 64:
+        return False
+    s = int.from_bytes(sig[32:], "little")
+    if s >= L:
+        return False
+    if pub in _BLOCKLIST or sig[:32] in _BLOCKLIST:
+        return False
+    a_pt = golden.point_decompress(pub)
+    if a_pt is None:
+        return False
+    r_pt = golden.point_decompress(sig[:32])
+    if r_pt is None:
+        return False
+    k = int.from_bytes(digest, "little") % L
+    x, y, z, _ = _shamir(k, _ext(golden.point_neg(a_pt)), s, _B_EXT)
+    rx, ry = r_pt
+    # projective equality against affine R: X == Rx*Z, Y == Ry*Z
+    return x == rx * z % P and y == ry * z % P
+
+
+def verify_batch_digest_host(
+    digests: np.ndarray,
+    sigs: np.ndarray,
+    pubs: np.ndarray,
+    lanes: int | None = None,
+) -> np.ndarray:
+    """Batch form matching verify.verify_batch_digest's shape contract:
+    (B, 64) digests, (B, 64) sigs, (B, 32) pubs -> (B,) bool numpy.
+    `lanes` skips zero-padding rows (their result is never consumed)."""
+    n = len(sigs)
+    live = n if lanes is None else min(int(lanes), n)
+    out = np.zeros(n, dtype=bool)
+    dg = np.asarray(digests, np.uint8)
+    sg = np.asarray(sigs, np.uint8)
+    pb = np.asarray(pubs, np.uint8)
+    for i in range(live):
+        out[i] = verify_digest(
+            dg[i].tobytes(), sg[i].tobytes(), pb[i].tobytes()
+        )
+    return out

@@ -39,6 +39,7 @@ import ctypes
 import torch
 
 from ...utils import kbuild
+from ...utils.hotpath import hot_path
 from . import field as F
 from . import point as PT
 from . import verify_core as VC
@@ -158,6 +159,7 @@ def _launch_decompress_niels(a_y, a_sign, r_y, r_sign):
     return an3, rn3, ok
 
 
+@hot_path
 def decompress_niels(a_y, a_sign, r_y, r_sign):
     """(y limbs, sign) x2 -> (an3 (3NL, B), rn3 (3NL, B), ok (B,) bool).
 
@@ -308,6 +310,7 @@ def msm_finalize(buckets, u_digits):
     return PT.eq_points(msm_sum(buckets), PT.scalar_mul_base(u_digits))[0]
 
 
+@hot_path(static=("slots",))
 def msm_check(cdig, zdig, an3, rn3, u_digits, slots=None):
     """Does  sum [c_i]A_i + sum [z_i]R_i  ==  [u]B ?  -> () bool tensor.
 

@@ -20,11 +20,13 @@ import numpy as np
 import torch
 
 from ...utils import devices
+from ...utils.hotpath import hot_path
 from . import golden
 from . import point as PT
 from . import scalar as SC
 
 
+@hot_path
 def _base_mul_compress(r_bytes):
     """(B, 32) uint8 little-endian scalars (< L) -> (B, 32) uint8 compressed
     [r]B: point.scalar_mul_base over the signed radix-16 digits, then one

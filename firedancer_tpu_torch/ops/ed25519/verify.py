@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ...utils import devices
+from ...utils.hotpath import hot_path
 from .. import sha512 as _sha
 from . import field as F
 from . import golden
@@ -68,6 +69,7 @@ def prologue(digest, sigs, pubs):
     return ok, k_digits, s_digits, a_y, a_sign, r_y, r_sign
 
 
+@hot_path
 def _verify_from_digest(digest, sigs, pubs):
     """Steps 1-3 and 5 for tensors on one device; `digest` is
     SHA512(R || A || M) per lane.  On the card steps 2 and 5 are the
@@ -86,6 +88,7 @@ def message_digests(msgs, lens, sigs, pubs):
     return _sha.sha512(cat, lens + 64)
 
 
+@hot_path
 def verify_batch(msgs, lens, sigs, pubs, device=None):
     """Verify a batch of Ed25519 signatures.
 
@@ -99,6 +102,7 @@ def verify_batch(msgs, lens, sigs, pubs, device=None):
     return _verify_from_digest(digest, sigs, pubs)
 
 
+@hot_path
 def verify_batch_digest(digests, sigs, pubs, device=None):
     """Verify from precomputed k-digests = SHA512(R || A || M).
 
@@ -186,6 +190,7 @@ def _torsion_free_pair(a_y, a_sign, r_y, r_sign):
     return tf[:b] & tf[b:]
 
 
+@hot_path
 def rlc_prologue(digests, sigs, pubs, zbytes):
     """The batch path's per-lane work before the MSM: -> dict with ok (B,),
     the MSM's inputs cdig (64, B), zdig (33, B), an3, rn3 (3NL, B) (zero

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ...utils import kbuild
+from ...utils.hotpath import hot_path
 from . import field as F
 from . import golden
 from . import point as PT
@@ -160,6 +161,7 @@ def _launch(k_digits, s_digits, a_y, a_sign, r_y, r_sign):
     return out
 
 
+@hot_path
 def verify_core(k_digits, s_digits, a_y, a_sign, r_y, r_sign):
     """Fused decompress + ([k](-A) + [s]B == R) -> (B,) bool.
 

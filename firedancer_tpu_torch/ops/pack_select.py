@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..utils import devices
+from ..utils.hotpath import hot_path
 
 #: largest cu_limit the device scan supports; PAD_COST sentinel rows (used
 #: by the host engine to pad candidates to a fixed shape) exceed it by
@@ -26,6 +27,7 @@ CU_LIMIT_MAX = 2**30 - 1
 PAD_COST = 1 << 30
 
 
+@hot_path(static=("cu_limit", "txn_limit"))
 def select_impl(cand_rw, cand_w, in_use_rw, in_use_w, costs, cu_limit: int,
                 txn_limit: int):
     """The greedy scan over tensors on one device.

@@ -18,6 +18,7 @@ import torch
 
 from ..utils.shaconst import H64 as _H64
 from ..utils.shaconst import K64 as _K64
+from ..utils.hotpath import hot_path
 
 
 def _signed(v: int) -> int:
@@ -78,6 +79,7 @@ def _pad(msgs, lens, max_blocks: int):
     return buf, nblocks[:, 0]
 
 
+@hot_path
 def sha512(msgs, lens):
     """Batch SHA-512.  msgs: (B, max_len) uint8 tensor; lens: (B,) integer
     tensor on the same device.  -> (B, 64) uint8 digests.

@@ -30,3 +30,16 @@ def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(x)
     return x.to(device=device, dtype=dtype).contiguous()
+
+
+def local_device_count(default: int = 1) -> int:
+    """Local CUDA inventory for "auto" device specs (the verify pool, the
+    bench's N-card mode): torch.cuda.device_count(), or `default` on a host
+    with no card, so host-only configs never fail on a missing card.
+
+    The counterpart of firedancer_tpu/utils/hostdev.py's
+    local_device_count.  Its `enable_compilation_cache` needs no
+    counterpart: utils/kbuild.py keeps every built kernel in _build/, keyed
+    on the source, headers and flags, and reuses it."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return n if n > 0 else default

@@ -188,6 +188,153 @@ def test_step_on_card_matches_cpu(dev):
     assert res_g[0][0].any() and not res_g[1][0].any()
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_dist_step_group_of_one_matches_single_card(dev):
+    """The step as the one rank of an NCCL group (dp = mp = 1) equals the
+    single-card step, and a batch run twice on the same buffers (a pool's
+    resubmit) gives the same answer twice."""
+    import torch.distributed as dist
+
+    from firedancer_tpu_torch.parallel.mesh import init_mesh
+
+    msgs, lens, sigs, pubs, _ = _corpus(24)
+    tags2 = sigs[:, :8].copy().view(np.uint32).reshape(len(sigs), 2)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_mesh(1, 1)
+        outs = []
+        for m in (None, mesh):
+            step = PL.make_step(dev, m)
+            bloom = PL.AgingBloom(dev, capacity=1)
+            res = []
+            for _ in range(2):  # the second batch repeats the first
+                bufs = bloom.buffers()
+                first = step(msgs, lens, sigs, pubs, tags2, *bufs)
+                again = step(msgs, lens, sigs, pubs, tags2, *bufs)
+                for a, b in zip(first, again):
+                    assert torch.equal(a, b)
+                bloom.update(first[1], first[2])
+                res.append((first[0].cpu().numpy(), first[2].cpu().numpy()))
+            outs.append((res, bloom.to_numpy()))
+    finally:
+        dist.destroy_process_group()
+    (res_1, st_1), (res_m, st_m) = outs
+    for (k1, m1), (km, mm) in zip(res_1, res_m):
+        np.testing.assert_array_equal(k1, km)
+        np.testing.assert_array_equal(m1, mm)
+    for a, b in zip(st_1, st_m):
+        np.testing.assert_array_equal(a, b)
+    assert res_1[0][0].any() and not res_1[1][0].any()
+
+
+def test_run_steps_on_card_matches_cpu(dev):
+    """parallel/dryrun.run_steps on one NCCL rank (the default, the card)
+    gives the gloo CPU rank's keep, metrics and filter on the dedup half."""
+    from firedancer_tpu_torch.parallel import dryrun
+
+    rng = np.random.default_rng(3)
+    tags2 = rng.integers(0, 2**32, (2, 16, 2), dtype=np.uint64).astype(np.uint32)
+    tags2[1, :4] = tags2[0, :4]  # cross-batch repeats
+    batches = [{"ok": rng.random(16) < 0.9, "tags2": t} for t in tags2]
+    card = dryrun.run_steps(1, 1, batches, capacity=1, repeat=True)
+    cpu = dryrun.run_steps(1, 1, batches, capacity=1, repeat=True, device="cpu")
+    for got, want in zip(card[0], cpu[0]):
+        for key in ("keep", "metrics", "cur"):
+            for g, w in zip(got[key], want[key]):
+                np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(got["cur_after"], want["cur_after"])
+        np.testing.assert_array_equal(got["prev_after"], want["prev_after"])
+        assert (got["inserted"], got["rotations"]) == (want["inserted"], want["rotations"])
+
+
+def _digest_batch(n):
+    msgs, lens, sigs, pubs, want = _corpus(n)
+    dig = np.stack([
+        np.frombuffer(hashlib.sha512(
+            sigs[i, :32].tobytes() + pubs[i].tobytes()
+            + msgs[i, : lens[i]].tobytes()).digest(), np.uint8)
+        for i in range(n)
+    ])
+    return (dig, sigs, pubs), want
+
+
+def test_pool_on_card_matches_direct(dev):
+    from firedancer_tpu_torch.parallel import dryrun
+    from firedancer_tpu_torch.utils.devices import local_device_count
+
+    batch, want = _digest_batch(40)
+    fns = dryrun.domain_fns(local_device_count(), sample=batch)
+    launches = VC.LAUNCHES
+    rep = dryrun.run_verify_pool(local_device_count(), batches=[batch] * 6, fns=fns)
+    assert VC.LAUNCHES == launches + 6
+    for ok in rep["verdicts"]:
+        np.testing.assert_array_equal(ok, want)
+    assert rep["fallback_batches"] == 0 and rep["device_errors"] == 0
+
+
+def _first_dispatch_fails():
+    calls = []
+
+    def hook(index):
+        calls.append(index)
+        if len(calls) == 1:
+            raise RuntimeError("injected device error")
+
+    return hook
+
+
+def test_pool_fault_injected_card_domain_raises(dev):
+    """A lone card domain quarantined by its first dispatch: the pool raises
+    DomainsOut and lands nothing on the host."""
+    from firedancer_tpu_torch.parallel import dryrun
+    from firedancer_tpu_torch.tiles.verify import DomainsOut
+
+    batch, _ = _digest_batch(16)
+    with pytest.raises(DomainsOut) as e:
+        dryrun.run_verify_pool(1, batches=[batch] * 3, fault_hook=_first_dispatch_fails(),
+                               trip_after=1, backoff_base_s=300.0, backoff_max_s=300.0)
+    c = e.value.counters
+    assert (c["device_errors"], c["device_trips"], c["fallback_batches"]) == (1, 1, 0)
+    assert sum(c["landed"]) == 0
+
+
+def test_pool_transient_card_fault_lands_on_card(dev):
+    """One failed dispatch below trip_after: the batch is resubmitted and
+    lands on the card, with no quarantine and no host landing."""
+    from firedancer_tpu_torch.parallel import dryrun
+
+    batch, want = _digest_batch(16)
+    rep = dryrun.run_verify_pool(1, batches=[batch] * 3, fault_hook=_first_dispatch_fails())
+    for ok in rep["verdicts"]:
+        np.testing.assert_array_equal(ok, want)
+    assert (rep["device_errors"], rep["device_trips"], rep["fallback_batches"]) == (1, 0, 0)
+    assert rep["resubmits"] == 1 and rep["landed"] == [3]
+
+
+def test_dryrun_multichip_on_cards(dev, capfd):
+    """entry.dryrun_multichip on the card: one NCCL rank per card for the
+    step and the sustained run, then the pool on CUDA domains; more ranks
+    than cards raise."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.utils.devices import local_device_count
+
+    n = local_device_count()
+    entry.dryrun_multichip(n)
+    out = capfd.readouterr().out
+    assert "dryrun_sustained ok: 6 steps" in out
+    assert "dryrun_multichip ok: full pipeline on mesh" in out
+    with pytest.raises(ValueError, match="NCCL ranks need"):
+        entry.dryrun_multichip(n + 1)
+
+
 # ---------------------------------------------------------------------------
 # the RLC path: decompress_niels, msm_buckets, verify_batch_digest_rlc
 # ---------------------------------------------------------------------------

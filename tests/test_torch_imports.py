@@ -37,14 +37,19 @@ def test_port_file_imports_no_jax(path):
 
 def test_port_has_files():
     names = {p.name for p in PORT_FILES}
+    rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "firedancer_tpu_torch/tiles/verify.py" in rel
     for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py",
                  "sha256.py", "poh.py", "gf256.py", "reedsol.py", "sign.py",
-                 "keccak256.py", "blake3.py"):
+                 "keccak256.py", "blake3.py", "entry.py", "dryrun.py", "mesh.py",
+                 "bench.py", "mux.py", "configure.py", "purity.py", "hotpath.py"):
         assert want in names
 
 
 def _entry_calls():
+    from firedancer_tpu_torch import bench, entry
     from firedancer_tpu_torch.models import pipeline as PL
+    from firedancer_tpu_torch.parallel import dryrun
     from firedancer_tpu_torch.ops import blake3, keccak256, pack_select, poh, reedsol, sha256
     from firedancer_tpu_torch.ops.ed25519 import sign
     from firedancer_tpu_torch.ops.ed25519 import verify as V
@@ -77,6 +82,12 @@ def _entry_calls():
         "make_step": lambda: PL.make_step(),
         "AgingBloom": lambda: PL.AgingBloom(),
         "fresh_bloom": lambda: PL.fresh_bloom(),
+        "entry": lambda: entry.entry(),
+        "bench": lambda: bench.bench(lanes=2, msg_len=8),
+        "run_verify_pool": lambda: dryrun.run_verify_pool(1, lanes=2),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+        "run_steps": lambda: dryrun.run_steps(
+            1, 1, [{"ok": z(2, bool), "tags2": z((2, 2), np.uint32)}]),
         "select_noconflict": lambda: pack_select.select_noconflict(
             z((2, 1), np.uint64), z((2, 1), np.uint64), z(1, np.uint64),
             z(1, np.uint64), z(2, np.int64), 10, 2),
@@ -89,7 +100,8 @@ ENTRY_POINTS = sorted([
     "verify_batch_digest_rlc",
     "sha256", "sha256_words32", "sha256_words64", "append_n", "mixin",
     "verify_entries", "encode", "recover", "public_keys", "sign_many",
-    "sign_batch", "keccak256", "blake3",
+    "sign_batch", "keccak256", "blake3", "entry", "bench", "run_verify_pool",
+    "dryrun_multichip", "run_steps",
 ])
 
 

@@ -3,6 +3,8 @@ mesh, at the real BLOOM_BITS = 2^28, from the same filter state (carried
 across with AgingBloom.from_numpy): two steps around one rotation, with
 within-batch duplicates, a failed signature sharing a tag with a valid one,
 and cross-batch repeats.  keep, metrics and every filter word must be equal.
+A batch run twice on the same buffers (a pool's resubmit) gives JAX's
+answer both times and leaves the input filter untouched.
 Also select_noconflict against the host greedy oracle of tests/test_pack.py.
 """
 
@@ -36,13 +38,28 @@ def _tags(sigs):
     return sigs[:, :8].copy().view(np.uint32).reshape(len(sigs), 2)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Both steps over the same two batches; -> per step (jax, port)
-    outputs and filter states."""
+def _key():
     rng = np.random.default_rng(7)
     sk = rng.integers(0, 256, 32, np.uint8).tobytes()
-    pk = hostpath.public_from_secret(sk)
+    return sk, hostpath.public_from_secret(sk)
+
+
+@pytest.fixture(scope="module")
+def mesh_1x1():
+    return Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "mp"))
+
+
+@pytest.fixture(scope="module")
+def step_j(mesh_1x1):
+    """The JAX step on a 1x1 mesh: one compile shared by this file."""
+    return PJ.make_step(mesh_1x1)
+
+
+@pytest.fixture(scope="module")
+def runs(mesh_1x1, step_j):
+    """Both steps over the same two batches; -> per step (jax, port)
+    outputs and filter states."""
+    sk, pk = _key()
     m1, l1, s1, p1 = _batch(100, sk, pk)
     m1[1], s1[1] = m1[0], s1[0]  # within-batch duplicate of lane 0
     s1[5, 40] ^= 1  # failed signature...
@@ -53,9 +70,7 @@ def runs():
     t2 = _tags(s2)
     batches = [(m1, l1, s1, p1, t1), (m2, l2, s2, p2, t2)]
 
-    mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("dp", "mp"))
-    step_j = PJ.make_step(mesh)
-    bloom_j = PJ.AgingBloom(mesh, capacity=1)  # rotate after the first step
+    bloom_j = PJ.AgingBloom(mesh_1x1, capacity=1)  # rotate after the first step
     step_t = PT.make_step("cpu")
     bloom_t = PT.AgingBloom.from_numpy(
         np.asarray(bloom_j.cur), np.asarray(bloom_j.prev),
@@ -80,6 +95,52 @@ def runs():
         )
         out.append(step_out)
     return out
+
+
+def test_batch_run_twice_matches_jax(mesh_1x1, step_j):
+    """The same batch twice on the same buffers: JAX's answer both times
+    (the port once updated `cur` in place, so its second run read every
+    valid lane as a duplicate), and the input buffers are unchanged."""
+    sk, pk = _key()
+    b = (*_batch(300, sk, pk),)
+    b = (*b, _tags(b[2]))
+    bloom_j = PJ.AgingBloom(mesh_1x1)
+    step_t = PT.make_step("cpu")
+    bloom_t = PT.AgingBloom("cpu")
+    cur_t, prev_t = bloom_t.buffers()
+    before = cur_t.clone()
+    outs = []
+    for _ in range(2):
+        kj, cj, mj = step_j(*b, *bloom_j.buffers())
+        kt, ct, mt = step_t(*b, cur_t, prev_t)
+        np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+        np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+        np.testing.assert_array_equal(ct.numpy().view(np.uint32), np.asarray(cj))
+        outs.append((kt, mt))
+    assert outs[0][0].all() and outs[1][0].all()
+    assert outs[1][1].tolist() == [B, 0, 0, B]
+    assert torch.equal(cur_t, before) and not prev_t.any()
+
+
+def test_rotation_leaves_caller_buffers_alone():
+    """AgingBloom's rotation starts a fresh current buffer: the previous
+    buffer a caller still holds (to retry a step) is not zeroed."""
+    bloom = PT.AgingBloom("cpu", capacity=1)
+    tags = torch.tensor([[1, 2], [3, 4]], dtype=torch.int64)
+    ok = torch.ones(2, dtype=torch.bool)
+    for _ in range(2):
+        keep, cur, met = PT.dedup(ok, tags, *bloom.buffers())
+        bloom.update(cur, met)
+        tags = tags + 10
+    assert bloom.rotations == 2
+    held_cur, held_prev = bloom.buffers()
+    snap = held_prev.clone()
+    assert snap.any()
+    keep, cur, met = PT.dedup(ok, tags, held_cur, held_prev)
+    bloom.update(cur, met)
+    assert bloom.rotations == 3
+    assert torch.equal(held_prev, snap)
+    assert bloom.cur is not held_prev and not bloom.cur.any()
 
 
 @pytest.mark.parametrize("step", [0, 1])
@@ -188,3 +249,27 @@ def test_cu_limit_above_max_raises():
         pack_select.select_noconflict(
             z, z, z[0], z[0], np.zeros(2), pack_select.CU_LIMIT_MAX + 1, 2,
             device="cpu")
+
+
+def test_pack_engine_with_port_device_select():
+    """ballet/pack.py's engine takes the port's select_noconflict as its
+    device_select and schedules what the host-only engine schedules (the
+    counterpart of tests/test_pack.py's test with the JAX function)."""
+    import functools
+
+    from test_pack import _acct, _mk_txn, _pack
+
+    engines = [_pack(), _pack()]
+    hot = _acct(80)
+    for pk in engines:
+        for i in range(12):
+            writables = [hot] if i % 3 == 0 else [_acct(100 + i)]
+            tx = _mk_txn(_acct(10 + i), writables, [], cu_price=(i + 1) * 100_000)
+            assert pk.insert(tx) == "ok"
+    mb_host = engines[0].schedule_microblock(0, cu_limit=10_000_000)
+    mb_dev = engines[1].schedule_microblock(
+        0, cu_limit=10_000_000,
+        device_select=functools.partial(pack_select.select_noconflict, device="cpu"),
+    )
+    assert len(mb_host.txn_idx) > 0
+    assert (mb_host.txn_idx == mb_dev.txn_idx).all()
