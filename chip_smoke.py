@@ -14,7 +14,8 @@ candidates of 1024 account bits.  Phases, one JSON line each:
   device       card name, power limit, TF32 switches (both set off)
   build        every kernel built from csrc/ by utils/kbuild.py, in parallel;
                ptxas's registers, shared memory, stack frame and spills per
-               kernel
+               kernel; the tile runtime's host ring library built from
+               tango/native/ by utils/cbuild.py
   sass         the multiply instructions of one fe_mul and one fe_sq in
                their SASS (cuobjdump -sass of csrc/probe/fe_probe.cu), the
                card's measured issue rate of IMAD.WIDE and of IMAD, and the
@@ -82,8 +83,24 @@ and the multi-device layer:
                raises on its first dispatch, at 64 lanes: quarantined, and
                the pool raises DomainsOut (a card's batch never lands on the
                host); ms per batch through the pool beside the direct call
+  tiles        the ingress tile pipeline through the port's entry
+               (entry.ingress): synth -> verify (VerifyTile at 4096 lanes x
+               1232 bytes, pad_full, no pre-dedup, one card) -> dedup (depth
+               2^20) -> sink in the thread runtime, a 512-txn pool with 10%
+               corrupted signatures streamed as 65,536 frags (128 passes,
+               16 full device batches); held exactly: every tile's counters
+               against the pool's good mask, survivors and payloads byte for
+               byte, 16 device batches, 16 verify_core launches after the
+               one warm-up, no fallback; run at the run loop's default idle
+               sleep (50 us) and at 1 ms, and once more at 1 ms under
+               torch.profiler for the card's kernel-time share; txns/s, e2e
+               p50/p99 at the sink, the verify hop's p99, ms per device
+               batch from the pool's dispatch and land stamps, and the busy
+               shares
   bench        python -m firedancer_tpu_torch.bench in a subprocess: one JSON
-               line with bench.py's keys
+               line with bench.py's keys; then --mode pipeline (replay ->
+               verify -> dedup -> sink, bench.py's sizes) at a 1 ms idle
+               sleep: verify_path_tps and the latency keys
   configure    the port's device stage, which must report ok
 
 then a `kernels` line, the nvidia-smi line, and last
@@ -1071,13 +1088,139 @@ def phase_pool(dev, batches) -> None:
           "card": nvidia_smi_line(), "seconds": time.time() - t0})
 
 
+#: the tiles phase: pool size, frags streamed, pool seed, the run loop's
+#: idle sleeps (its default, and the 1 ms at which idle tile threads stop
+#: starving the verify worker of the GIL)
+TILES_POOL, TILES_FRAGS, TILES_SEED = 512, 65536, 5
+TILES_IDLE_S = (50e-6, 1e-3)
+
+
+def stamps_summary(stamps, seconds: float) -> dict:
+    """The pool's dispatch/land stamps (µs, u32) of every landed batch ->
+    the median dispatch-to-land time, the median time between landings, and
+    the share of the run's wall time in which at least one batch was
+    between dispatch and land (the host's view of a busy card)."""
+    from firedancer_tpu_torch.disco.mux import ts_diff
+
+    t0 = stamps[0][3]
+    ivs = sorted((ts_diff(d, t0), ts_diff(l, t0)) for *_, d, l in stamps)
+    busy, cur = 0, None
+    for a, b in ivs:
+        if cur is None or a > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += cur[1] - cur[0]
+    lands = sorted(b for _, b in ivs)
+    return {
+        "ms_dispatch_to_land_median": statistics.median(b - a for a, b in ivs) / 1e3,
+        "ms_between_landings_median": (statistics.median(
+            y - x for x, y in zip(lands, lands[1:])) / 1e3 if len(lands) > 1 else None),
+        "inflight_share": busy / 1e6 / seconds,
+    }
+
+
+def check_tiles(r, launches: int) -> None:
+    """The tiles phase's exact checks; raises on any miss."""
+    c = r["counters"]
+    v, d = c["verify"], c["dedup"]
+    good = r["pool"]["good"]
+    n_good, passes = int(good.sum()), TILES_FRAGS // TILES_POOL
+    want = {
+        ("verify", "in_frags"): TILES_FRAGS,
+        ("verify", "verify_fail_txns"): (TILES_POOL - n_good) * passes,
+        ("verify", "out_frags"): n_good * passes,
+        ("verify", "device_batches"): TILES_FRAGS // B,
+        ("verify", "fallback_batches"): 0,
+        ("verify", "device_errors"): 0,
+        ("verify", "device_trips"): 0,
+        ("dedup", "dup_txns"): n_good * (passes - 1),
+        ("sink", "sunk_frags"): n_good,
+    }
+    got = {k: c[k[0]][k[1]] for k in want}
+    if got != want:
+        raise AssertionError(f"tiles counters {got} != {want}")
+    if launches != v["device_batches"] + 1:
+        raise AssertionError(f"verify_core launched {launches} times for "
+                             f"{v['device_batches']} batches and one warm-up")
+    if not np.array_equal(r["survivors"], r["pool"]["tags"][good]):
+        raise AssertionError("sink survivors differ from the pool's good tags")
+    if not (np.array_equal(r["payloads"], r["pool"]["rows"][good])
+            and np.array_equal(r["sizes"], r["pool"]["szs"][good])):
+        raise AssertionError("sink payloads differ from the pool's rows")
+    if d["in_frags"] != v["out_frags"]:
+        raise AssertionError(f"dedup took {d['in_frags']} of {v['out_frags']}")
+
+
+def kernel_share(run) -> dict:
+    """One tiles run under torch.profiler (CUDA activity only): the card's
+    summed device time over the run's wall time.  The profile also holds
+    the warm-up batch, one of the run's 17 equal batches of device work, so
+    its share is taken out.  -> {"device_ms", "share"}, or {"not_measured":
+    reason} when the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r = run()
+    dev_us = sum(getattr(e, "self_device_time_total", 0) or 0
+                 for e in prof.key_averages())
+    if dev_us <= 0:
+        return {"not_measured": "torch.profiler showed no device time"}, r
+    batches = r["counters"]["verify"]["device_batches"]
+    dev_us *= batches / (batches + 1)
+    return {"device_ms": dev_us / 1e3, "share": dev_us / 1e6 / r["seconds"]}, r
+
+
+def phase_tiles() -> None:
+    """The ingress tile pipeline on the card through entry.ingress, at the
+    verify tile's deployment size; see the module docstring."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
+    from firedancer_tpu_torch.tiles.synth import make_txn_pool
+
+    t0 = time.time()
+    pool = make_txn_pool(TILES_POOL, corrupt_frac=0.1, seed=TILES_SEED)
+
+    def run(idle_s):
+        return entry.ingress(pool, total=TILES_FRAGS, max_lanes=B,
+                             idle_sleep_s=idle_s)
+
+    runs = []
+    for idle_s in TILES_IDLE_S:
+        sync()
+        VC.LAUNCHES = 0
+        r = run(idle_s)
+        sync()
+        launches = VC.LAUNCHES
+        check_tiles(r, launches)
+        runs.append({
+            "idle_sleep_us": idle_s * 1e6, "txns_per_s": r["txns_per_s"],
+            "seconds": r["seconds"], "e2e_p50_us": r["e2e_p50_us"],
+            "e2e_p99_us": r["e2e_p99_us"], "verify_hop_p99_us": r["verify_hop_p99_us"],
+            "device_batches": r["counters"]["verify"]["device_batches"],
+            "verify_core_launches_after_warmup": launches - 1,
+            **stamps_summary(r["landed_stamps"], r["seconds"])})
+    share, r = kernel_share(lambda: run(TILES_IDLE_S[-1]))
+    check_tiles(r, r["counters"]["verify"]["device_batches"] + 1)
+    emit({"phase": "tiles", "pool": TILES_POOL, "frags": TILES_FRAGS, "lanes": B,
+          "msg_width": W, "n_good": int(pool[2].sum()), "checks": "exact", "runs": runs,
+          "kernel_time_share": {"idle_sleep_us": TILES_IDLE_S[-1] * 1e6,
+                                "txns_per_s": r["txns_per_s"], **share},
+          "card": nvidia_smi_line(), "seconds": time.time() - t0})
+
+
 #: the keys of bench.py's JSON line that the port's bench keeps
 BENCH_KEYS = ("metric", "value", "unit", "n_devices", "per_device")
+#: the keys of bench.py's pipeline results
+PIPE_KEYS = ("verify_path_tps", "e2e_p50_us", "e2e_p99_us", "verify_hop_p99_us")
 
 
 def phase_bench() -> None:
     """python -m firedancer_tpu_torch.bench in a subprocess: one parseable
-    JSON line with bench.py's keys."""
+    JSON line with bench.py's keys; then its pipeline mode, one line with
+    bench.py's pipeline keys and no batch on the host."""
     t0 = time.time()
     res = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch.bench"],
                          cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -1090,8 +1233,22 @@ def phase_bench() -> None:
     missing = [k for k in BENCH_KEYS if k not in out]
     if missing or out["metric"] != "ed25519_verifies_per_s_1chip" or out["value"] <= 0:
         raise AssertionError(f"bench line: missing {missing}, {out}")
-    emit({"phase": "bench", "line": out, "card": nvidia_smi_line(),
-          "seconds": time.time() - t0})
+    t1 = time.time()
+    res = subprocess.run([sys.executable, "-m", "firedancer_tpu_torch.bench",
+                          "--mode", "pipeline", "--idle-sleep-us", "1000"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"bench --mode pipeline exited {res.returncode}:\n"
+                             f"{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"bench --mode pipeline printed {len(lines)} lines")
+    pipe = json.loads(lines[0])
+    missing = [k for k in PIPE_KEYS if k not in pipe]
+    if missing or pipe["value"] <= 0 or pipe["fallback_batches"]:
+        raise AssertionError(f"bench --mode pipeline line: missing {missing}, {pipe}")
+    emit({"phase": "bench", "line": out, "pipeline": pipe, "card": nvidia_smi_line(),
+          "seconds": t1 - t0, "pipeline_seconds": time.time() - t1})
 
 
 def phase_configure(t_start: float) -> None:
@@ -1109,6 +1266,7 @@ def run_multi(dev, batches, single_bloom, keeps, metrics, t_start) -> None:
     """The phases of the multi-device layer."""
     phase_dist_step(dev, batches, single_bloom, keeps, metrics)
     phase_pool(dev, batches)
+    phase_tiles()
     phase_bench()
     phase_configure(t_start)
 
@@ -1144,13 +1302,21 @@ def run(dev) -> dict:
     t0 = time.time()
     names = kbuild.build_all()
     build_s = time.time() - t0
+    # the host ring library of the tile runtime (tango/native/, utils/cbuild.py)
+    t0 = time.time()
+    from firedancer_tpu_torch.tango import rings
+    from firedancer_tpu_torch.utils import cbuild
+
+    rings.trace_now()  # the first use builds and loads it
+    ring_lib = {"library": os.path.relpath(cbuild.library_path(
+        "fdt_tango", rings._NATIVE_SOURCES), ROOT), "seconds": time.time() - t0}
     ptxas = {
         n: [ln.strip() for ln in kbuild.build_log(n).splitlines()
             if "registers" in ln or "stack frame" in ln]
         for n in names
     }
     emit({"phase": "build", "kernels": names, "seconds": build_s,
-          "ptxas": ptxas,
+          "ring_library": ring_lib, "ptxas": ptxas,
           "ptxas_summary": {n: ptxas_summary(kbuild.build_log(n)) for n in names}})
 
     # -- sass: the field products' multiply instructions, the card's rate ---

@@ -1,29 +1,38 @@
-"""The verify tile's device pool: per-device fault domains, one worker
-thread per device, and in-order landing.
+"""The verify tile — the device sig-verify bridge — and its device pool.
 
-The counterpart of firedancer_tpu/tiles/verify.py:171-700 (`DevicePolicy`,
-`_DeviceWorker`, `_DevicePool`), with the same names, counters and
-semantics; `VerifyTile` and its single-device `FallbackPolicy` wait for the
-port of the tile runtime, where they get a caller.  How the JAX pool maps
-onto PyTorch:
+The counterpart of firedancer_tpu/tiles/verify.py: `VerifyTile`, its
+single-device `FallbackPolicy`, the pool's per-device fault domains
+(`DevicePolicy`), one worker thread per device (`_DeviceWorker`) and
+in-order landing (`_DevicePool`), with the same names, counters and
+semantics.  How the JAX tile maps onto PyTorch:
 
   * dispatch: a domain's device function is
     ops/ed25519/verify.verify_batch_digest_on(i), one per CUDA ordinal.  It
     launches asynchronously and returns the (B,) bool tensor on card i.
   * land: the one sync is the tensor's host copy (`.cpu()`), where a CUDA
     fault of the batch surfaces, as JAX's np.asarray does.
+  * warm-up: the tile runs one full-width zero batch per domain at boot,
+    inside that domain's device context, and syncs on its host copy.
   * threads: each worker thread enters torch.cuda.device(i) itself,
     because the current device is per thread.  Two domains on one card
-    share its default stream and run one after the other.
+    share its default stream and run one after the other.  The tile
+    threads touch no CUDA.
   * host strict path: ops/ed25519/hostpath.verify_batch_digest_host is the
-    last resort of host domains only.  Where JAX lands a batch on the host
-    when every device is out, a pool of CUDA domains raises DomainsOut:
-    work for the card never moves to the CPU because a kernel failed.
+    last resort of host domains only (device="cpu" or "off").  Where JAX
+    lands a batch on the host when its device fails, a CUDA domain trips
+    and its pool raises DomainsOut: work for the card never moves to the
+    CPU because a kernel failed.
+  * partial batches: a batch of fewer than max_lanes lanes goes out only
+    after a drain of the in-ring came back empty (nothing fuller is
+    coming).  JAX sends it at once; waiting one empty drain keeps a
+    producer's batch that is still being published from being split.
 
 A sticky CUDA error poisons the context of its card, so a domain
 quarantined for one stays quarantined across its backoff re-probes: the
 JAX semantics, not a fault of the port.  Host-to-device copies from
 pageable numpy inputs are synchronous (pinned staging is later work).
+Not ported yet: elastic members (`device_universe` raises) and the fault
+injector's device_error hook.
 """
 
 from __future__ import annotations
@@ -37,7 +46,17 @@ import time
 import numpy as np
 import torch
 
-from ..disco.mux import now_ts
+from ..disco import trace as SPAN
+from ..disco.metrics import MetricsSchema, device_counters
+from ..disco.mux import MuxCtx, Tile, TileInterrupted, now_ts
+from ..ops.ed25519 import hostpath
+from ..tango import rings as R
+from ..utils import devices as D
+from . import wire
+
+#: reference: VERIFY_TCACHE_DEPTH 16 (fd_verify.h:6) — a tiny per-tile
+#: pre-dedup catching back-to-back duplicates before they burn device time
+PRE_DEDUP_DEPTH = 16
 
 _STOP = object()
 
@@ -80,6 +99,119 @@ class DomainsOut(RuntimeError):
     def __init__(self, msg: str, counters: dict):
         super().__init__(msg)
         self.counters = counters
+
+
+class FallbackPolicy:
+    """Graceful degradation for the single-device verify path.
+
+    Wraps the device dispatch in a catch → host-retry → circuit-trip
+    state machine: a device error (at dispatch or at the host copy)
+    reroutes THAT batch through the strict host verifier
+    (ops/ed25519/hostpath.py) instead of killing the tile; `trip_after`
+    consecutive device failures latch host-only mode, and every
+    `reprobe_every` batches one batch re-probes the device so a recovered
+    device is picked back up automatically.
+
+    A domain on a CUDA card has no host path (host_fn must be None): a
+    failed batch goes back to the pool, which retries it on the card, and
+    `trip_after` consecutive failures take the domain out for good — the
+    pool then raises DomainsOut.  `fault_hook()` is the fault-injection
+    point, called once per device-batch attempt.
+
+    Counter attributes are mirrored into the tile's shared metrics
+    (fallback_batches etc.) by VerifyTile so a monitor sees the
+    degradation state live.
+    """
+
+    #: set by the pool's stall watchdog (DevicePolicy only: this policy
+    #: has no stall patience)
+    stalled = False
+
+    def __init__(
+        self,
+        device_fn,
+        host_fn=None,
+        *,
+        trip_after: int = 3,
+        reprobe_every: int = 64,
+        fault_hook=None,
+    ):
+        if host_fn is not None and _card_of(device_fn) is not None:
+            raise ValueError("a CUDA domain has no host path: pass host_fn=None")
+        self.device_fn = device_fn
+        self.host_fn = host_fn
+        self.trip_after = max(trip_after, 1)
+        self.reprobe_every = max(reprobe_every, 1)
+        self.fault_hook = fault_hook
+        self.consec_failures = 0
+        self.tripped = False  # latched host-only mode
+        self._since_trip = 0
+        # counters (mirrored into metrics by the owning tile)
+        self.fallback_batches = 0
+        self.device_errors = 0
+        self.device_trips = 0
+        self.host_reprobes = 0
+        self.device_stalls = 0
+
+    def healthy(self, now: float | None = None) -> bool:
+        """Schedulable by the pool: always, while a host path backs the
+        domain (it degrades per batch); a tripped card domain is out."""
+        return self.host_fn is not None or not self.tripped
+
+    def _try_device(self) -> bool:
+        if self.device_fn is None:
+            return False
+        if not self.tripped:
+            return True
+        self._since_trip += 1
+        if self._since_trip >= self.reprobe_every:
+            self._since_trip = 0
+            self.host_reprobes += 1
+            return True
+        return False
+
+    def _device_failed(self) -> None:
+        self.device_errors += 1
+        self.consec_failures += 1
+        if not self.tripped and self.consec_failures >= self.trip_after:
+            self.tripped = True
+            self.device_trips += 1
+            self._since_trip = 0
+
+    def dispatch(self, args):
+        """Start a batch.  Device dispatch is async (returns the result
+        tensor); the host path defers all work to land()."""
+        if self._try_device():
+            try:
+                if self.fault_hook is not None:
+                    self.fault_hook()
+                return ("dev", self.device_fn(*args))
+            except Exception:
+                self._device_failed()
+        return ("host", None) if self.host_fn is not None else ("fail", None)
+
+    def land(self, fut, args, lanes: int | None = None):
+        """Finish a batch: the device result's host copy (where a fault of
+        the batch surfaces) or the host verifier; None hands a card
+        domain's failed batch back to the pool."""
+        kind, val = fut
+        if kind == "dev":
+            try:
+                out = _to_host(val)
+                self.consec_failures = 0
+                if self.tripped:
+                    self.tripped = False  # re-probe succeeded: recovered
+                return out
+            except Exception:
+                self._device_failed()
+        if self.host_fn is None:
+            return None
+        if self.device_fn is not None:
+            # fallback_batches measures DEGRADATION — batches a configured
+            # device failed to serve; a host-only tile (device="off") is
+            # healthy, not degraded
+            self.fallback_batches += 1
+        return self.host_fn(*args, lanes=lanes)
 
 
 class DevicePolicy:
@@ -652,3 +784,637 @@ class _DevicePool:
             if w.thread.is_alive():
                 zombies.append(i)
         return zombies, dropped
+
+
+class VerifyTile(Tile):
+    def __init__(
+        self,
+        *,
+        msg_width: int = 1232,
+        max_lanes: int = 4096,
+        pre_dedup: bool = True,
+        pad_full: bool = False,
+        shard: tuple[int, int] | None = None,
+        async_depth: int = 3,
+        device=None,
+        device_fn=None,
+        devices: int | str | list | None = 1,
+        device_universe: list | None = None,
+        fallback_trip: int = 3,
+        fallback_reprobe: int = 64,
+        dev_backoff_base_s: float = 0.5,
+        dev_backoff_max_s: float = 30.0,
+        stall_patience_s: float = 120.0,
+        name: str = "verify",
+    ):
+        """pad_full: always pad sub-batches to max_lanes (one shape;
+        right for steady full-rate ingress).  False pads to power-of-two
+        buckets (cheaper on trickle traffic).  The padded lanes' verdicts
+        are dropped.
+
+        shard=(idx, cnt): horizontal scaling — this replica only processes
+        frags with seq % cnt == idx (reference: round-robin seq sharding
+        across verify tiles, fd_verify.c:46); the others are skipped
+        without gathering payloads.
+
+        async_depth: device batches in flight PER DEVICE (the wiredancer
+        request pipe depth); 1 degenerates to synchronous dispatch.
+
+        device: None (the CUDA card; raises "no CUDA device" on a host
+        without one), "cpu" (the plain versions: tests only), or "off"
+        (every batch on the strict host path, as in JAX).  device_fn
+        overrides the device function outright (fault-injection stubs).
+        fallback_trip / fallback_reprobe parameterize the FallbackPolicy.
+
+        devices: the pool width — 1 (default: one serialized stream), an
+        int N (domains 0..N-1), an explicit list of CUDA ordinals, or
+        "auto" (every local card, counted by local_device_count).  With
+        N > 1 each domain is its own fault domain: dev_backoff_base_s /
+        dev_backoff_max_s cap the quarantine backoff and stall_patience_s
+        is the per-device stall patience.
+
+        device_universe (elastic shard members) raises until the elastic
+        topology is ported."""
+        assert max_lanes & (max_lanes - 1) == 0, (
+            "max_lanes must be a power of two (pad buckets assume it)"
+        )
+        if device_universe is not None:
+            raise NotImplementedError(
+                "device_universe: elastic shard members are not ported yet"
+            )
+        self.name = name
+        self.msg_width = msg_width
+        self.max_lanes = max_lanes
+        self.pre_dedup = pre_dedup
+        self.pad_full = pad_full
+        self.shard = shard
+        self.async_depth = max(async_depth, 1)
+        #: the torch device of the domains (None: host only, device="off")
+        self._dev = None if device == "off" else D.resolve(device)
+        self._device_fn_override = device_fn
+        self.device_indices = _resolve_devices(devices, self._dev, device_fn)
+        self.n_devices = len(self.device_indices)
+        self.fallback_trip = fallback_trip
+        self.fallback_reprobe = fallback_reprobe
+        self.dev_backoff_base_s = dev_backoff_base_s
+        self.dev_backoff_max_s = dev_backoff_max_s
+        self.stall_patience_s = stall_patience_s
+        # per-instance schema: the per-device health/throughput rows are
+        # sized by the pool width at declaration time (the topology
+        # allocates the metrics region before boot)
+        self.schema = MetricsSchema(
+            counters=(
+                "verify_fail_txns",
+                "dedup_drop_txns",
+                "verified_sigs",
+                "device_batches",
+                # policy state, mirrored each loop so monitors see
+                # degradation live (sums across the pool's domains)
+                "fallback_batches",
+                "device_errors",
+                "device_trips",
+                "host_reprobes",
+                "pool_resubmits",
+                "pool_late_results",
+            )
+            + device_counters(self.n_devices),
+            hists=("lane_batch",),
+        )
+        self._tc: R.TCache | None = None
+        self._fns: list | None = None
+        self._policies: list | None = None
+        self._pool: _DevicePool | None = None
+        self._interrupt = None  # ctx.interrupt, bound at boot
+        self._tracer = None  # ctx.tracer, bound at boot
+        self._prev_fallback = 0  # FALLBACK span edge detector
+        self._prev_degraded: dict[int, int] = {}  # QUARANTINE edges
+        self._mirror_tick = 0
+        #: staged host-prepared lanes not yet submitted (list of dicts)
+        self._staged: collections.deque = collections.deque()
+        self._staged_lanes = 0
+        #: results processed into publish-ready arrays, awaiting credits
+        self._outq: collections.deque = collections.deque()
+        self._outq_txns = 0
+        #: this loop iteration: the drain was open (in_budget let frags
+        #: in) and no frag arrived — the in-ring is idle, so a partial
+        #: batch may go out
+        self._drain_open = False
+        self._got = False
+        #: (pool_seq, domain, lanes, t_disp, t_land) of the last landed
+        #: batches: the dispatch and land stamps of the pool's worker
+        self.landed_stamps: collections.deque = collections.deque(maxlen=1 << 16)
+
+    @property
+    def _policy(self):
+        """Compat view for single-device callers/tests."""
+        return self._policies[0] if self._policies else None
+
+    def wksp_footprint(self) -> int:
+        if not self.pre_dedup:
+            return 0
+        return R.TCache.footprint(
+            PRE_DEDUP_DEPTH, R.TCache.map_cnt_for(PRE_DEDUP_DEPTH)
+        )
+
+    def _make_device_fns(self) -> list:
+        """One device function per pool domain, each pinned to its card
+        (verify_batch_digest_on), and warmed with one full-width zero
+        batch inside its device context, synced on the host copy, so the
+        steady state never pays a first call."""
+        n = self.n_devices
+        if self._device_fn_override is not None:
+            return [self._device_fn_override] * n
+        if self._dev is None:
+            return [None] * n
+        if self._fns is None:
+            from ..ops.ed25519 import verify as fver
+
+            if self._dev.type == "cuda":
+                have = D.local_device_count(default=0)
+                bad = [d for d in self.device_indices if d >= have]
+                if bad:
+                    # aliasing d % have would silently pin two domains to
+                    # one card and report N independent devices
+                    raise ValueError(
+                        f"{self.name}: devices {bad} out of range — host "
+                        f"has {have} CUDA device(s)"
+                    )
+                self._fns = [fver.verify_batch_digest_on(d)
+                             for d in self.device_indices]
+            else:
+                self._fns = [fver.verify_batch_digest_on(self._dev)] * n
+            z64 = np.zeros((self.max_lanes, 64), np.uint8)
+            z32 = np.zeros((self.max_lanes, 32), np.uint8)
+            for f in self._fns:
+                _to_host(f(z64, z64, z32))
+        return self._fns
+
+    def on_boot(self, ctx: MuxCtx) -> None:
+        self._interrupt = ctx.interrupt
+        self._tracer = ctx.tracer
+        # warm the strict host path once per process: its first call pays
+        # table setup that must not land inside the first production
+        # batch's tail latency
+        hostpath.verify_batch_digest_host(
+            np.zeros((1, 64), np.uint8), np.zeros((1, 64), np.uint8),
+            np.zeros((1, 32), np.uint8),
+        )
+        if self.pre_dedup:
+            depth = PRE_DEDUP_DEPTH
+            map_cnt = R.TCache.map_cnt_for(depth)
+            fp = R.TCache.footprint(depth, map_cnt)
+            # re-initialized (join=False) even on restart: a replayed
+            # frag the dead incarnation consumed but never forwarded must
+            # NOT be swallowed by a stale pre-dedup entry — the real dedup
+            # tile downstream keeps the durable history
+            self._tc = R.TCache(ctx.alloc("tcache", fp), depth, map_cnt)
+        if self._policies is None:
+            # policies (and their degradation counters) persist across
+            # restarts; only the worker threads are per-life
+            self._policies = self._build_policies()
+        self._pool = _DevicePool(
+            self._policies, self.async_depth, name=self.name
+        )
+
+    def _build_policies(self) -> list:
+        fns = self._make_device_fns()
+
+        def host_fn(fn):
+            # a card domain has no host path
+            return None if _card_of(fn) is not None else (
+                hostpath.verify_batch_digest_host)
+
+        if self.n_devices == 1:
+            return [
+                FallbackPolicy(
+                    fns[0], host_fn(fns[0]),
+                    trip_after=self.fallback_trip,
+                    reprobe_every=self.fallback_reprobe,
+                )
+            ]
+        return [
+            DevicePolicy(
+                fns[i], host_fn(fns[i]),
+                index=i,
+                trip_after=self.fallback_trip,
+                backoff_base_s=self.dev_backoff_base_s,
+                backoff_max_s=self.dev_backoff_max_s,
+                stall_patience_s=self.stall_patience_s,
+            )
+            for i in range(self.n_devices)
+        ]
+
+    # ---- ingress: host prep + staging -----------------------------------
+
+    def on_frags(self, ctx: MuxCtx, in_idx: int, frags: np.ndarray) -> None:
+        self._got = True
+        il = ctx.ins[in_idx]
+        if self.shard is not None:
+            idx, cnt = self.shard
+            frags = frags[frags["seq"] % cnt == idx]
+            if not len(frags):
+                return
+        if self._tc is not None:
+            dup = self._tc.dedup(frags["sig"])
+            if dup.any():
+                ctx.metrics.inc("dedup_drop_txns", int(dup.sum()))
+                frags = frags[~dup]
+        if not len(frags):
+            return
+        # one GIL-released native call: dcache gather + trailer parse +
+        # per-sig lane expansion + k-digests + dedup tags; the device
+        # gets digests, so the message copy is skipped outright
+        b = wire.expand_native(il.dcache, frags, self.msg_width,
+                               with_digests=True, with_msgs=False)
+        lanes = len(b["sigs"])
+        b.pop("txn_idx")
+        b["tsorigs"] = frags["tsorig"].copy()
+        # ring seq per txn, carried through staging -> device -> publish
+        # so ack_floor can hold the fseq at the oldest unflushed frag
+        b["seqs"] = frags["seq"].copy()
+        self._staged.append(b)
+        self._staged_lanes += lanes
+        # submit only while the pool has room: a full pool means every
+        # device pipe is behind, and the right response is to hold frags
+        # in the RING (in_budget -> credit backpressure), not to block
+        # this thread past its heartbeat deadline
+        while (
+            self._staged_lanes >= self.max_lanes
+            and self._pool.can_accept()
+        ):
+            self._submit_front(self.max_lanes)
+
+    def ack_floor(self, ctx: MuxCtx, in_idx: int) -> int | None:
+        """Oldest in-ring frag seq still riding the async pipeline
+        (staged -> device pool -> credit-gated publish queue).  The mux
+        holds the fseq here so the producer cannot overwrite a consumed
+        -but-unpublished frag — a crash anywhere in the pipeline is then
+        recoverable by rejoin replay (the drop/landing of a txn releases
+        its seq, so the floor only ever advances)."""
+        floor = None
+        batches = [b["seqs"] for q in (self._outq, self._staged) for b in q]
+        pool = self._pool
+        if pool is not None:
+            batches += [ent[0]["seqs"] for ent in pool.outstanding.values()]
+            batches += [meta["seqs"] for meta, _ok in pool.reorder.values()]
+            batches += [meta["seqs"] for meta, _ok in pool.ready]
+        for seqs in batches:
+            s = int(seqs[0])
+            # wrap-safe min: a plain-int min picks the wrapped-to-tiny seq
+            # across a 2^64 crossing
+            floor = s if floor is None else R.seq_min(floor, s)
+        return floor
+
+    def in_budget(self, ctx: MuxCtx) -> int | None:
+        # stop draining the ring when the device pool is full or results
+        # are waiting on downstream credits — backpressure flows upstream
+        # through the ring's credit model, not an unbounded host buffer
+        p = self._pool
+        if p is not None and not p.can_accept():
+            budget = 0
+        elif self._staged_lanes >= 2 * self.max_lanes:
+            budget = 0
+        elif self._outq_txns >= 4 * self.max_lanes:
+            budget = 0
+        else:
+            budget = None
+        # this iteration's drain observation, read by after_credit
+        self._drain_open = budget is None
+        self._got = False
+        return budget
+
+    # ---- device submit ---------------------------------------------------
+
+    def _submit_front(self, lanes_cap: int) -> None:
+        """Concatenate staged chunks into one device batch of <= lanes_cap
+        lanes (whole txns only) and push it to the pool."""
+        take, lanes = [], 0
+        while self._staged:
+            chunk = self._staged[0]
+            n = len(chunk["sigs"])
+            if lanes + n > lanes_cap:
+                # split the chunk on a txn boundary
+                cnt = chunk["sig_cnt"]
+                ends = np.cumsum(cnt)
+                k = int(np.searchsorted(ends, lanes_cap - lanes, "right"))
+                if k == 0:
+                    if lanes == 0:
+                        # a single txn with more lanes than the cap: take
+                        # it alone (the kernel pads to any pow2 bucket) —
+                        # never stall with zero progress
+                        k = 1
+                    else:
+                        break
+                head, tail = _split_chunk(chunk, k, int(ends[k - 1]))
+                take.append(head)
+                lanes += int(ends[k - 1])
+                if len(tail["sigs"]):
+                    self._staged[0] = tail
+                else:
+                    self._staged.popleft()
+                break
+            take.append(self._staged.popleft())
+            lanes += n
+        if not take:
+            return
+        self._staged_lanes -= lanes
+        if len(take) == 1:
+            b = take[0]
+        else:
+            b = {k: np.concatenate([c[k] for c in take]) for k in take[0]}
+        pad = (
+            self.max_lanes
+            if self.pad_full
+            else 1 << max(lanes - 1, 0).bit_length()
+        )
+        meta = dict(
+            rows=b["rows"], szs=b["szs"], tsorigs=b["tsorigs"],
+            sig_cnt=b["sig_cnt"], tags=b["tags"], seqs=b["seqs"],
+            lanes=lanes,
+        )
+        self._submit(
+            meta,
+            (
+                _pad2(b["digests"], pad),
+                _pad2(b["sigs"], pad),
+                _pad2(b["pubs"], pad),
+            ),
+        )
+
+    def _submit(self, meta, args) -> None:
+        """Interruptible submit: a full pool behind a slow host path must
+        not turn into an unbounded blocking put — the ctx interrupt and
+        dead workers both have to be able to unwedge the loop thread."""
+        pool = self._pool
+        while True:
+            pool.check_fatal()
+            if pool.aborted:
+                return  # crash teardown: ring replay re-delivers
+            if self._interrupt is not None and self._interrupt.is_set():
+                raise TileInterrupted(f"{self.name}: submit abandoned")
+            if pool.submit(meta, args):
+                if self._tracer is not None:
+                    self._tracer.point(
+                        SPAN.ENQUEUE,
+                        seq=meta["pool_seq"],
+                        aux16=min(meta["lanes"], 0xFFFF),
+                    )
+                return
+            # no capacity anywhere: poll (stall watchdog + retry pump may
+            # free a lane) and wait for a worker to make progress
+            pool.poll()
+            time.sleep(1e-3)
+
+    # ---- egress: results -> publish --------------------------------------
+
+    def _land_results(self, ctx: MuxCtx) -> None:
+        pool = self._pool
+        pool.check_fatal()
+        pool.poll()
+        while pool.ready:
+            meta, ok = pool.ready.popleft()
+            lanes = meta["lanes"]
+            ok = ok[:lanes]  # the padded lanes' verdicts are dropped
+            dev = int(meta.get("t_dev", 0)) & 0xFF
+            seq = meta.get("pool_seq", 0)
+            self.landed_stamps.append(
+                (seq, dev, lanes, meta.get("t_disp"), meta.get("t_land")))
+            if self._tracer is not None:
+                # dispatch/land timestamps were stamped into the meta by
+                # the worker thread; emitted here so the span ring keeps
+                # its single writer (this mux thread)
+                if "t_disp" in meta:
+                    self._tracer.point(
+                        SPAN.DISPATCH, ts=meta["t_disp"], seq=seq, aux16=dev,
+                    )
+                self._tracer.point(
+                    SPAN.LAND, ts=meta.get("t_land"), seq=seq, aux16=dev,
+                    aux64=lanes,
+                )
+            ctx.metrics.inc("verified_sigs", lanes)
+            ctx.metrics.inc("device_batches")
+            ctx.metrics.hist_sample("lane_batch", lanes)
+            cnt = meta["sig_cnt"]
+            starts = np.concatenate(([0], np.cumsum(cnt)[:-1]))
+            txn_ok = (
+                np.logical_and.reduceat(ok, starts)
+                if lanes
+                else np.zeros(0, bool)
+            )
+            n_fail = int((~txn_ok).sum())
+            if n_fail:
+                ctx.metrics.inc("verify_fail_txns", n_fail)
+            if not txn_ok.any():
+                continue
+            # dedup tag: first 8 bytes of the first signature, LE u64
+            # (reference: fd_dedup keys the tango sig field,
+            # fd_dedup.c:125) — computed by fdt_verify_expand at staging
+            self._outq.append(
+                dict(
+                    tags=meta["tags"][txn_ok],
+                    rows=meta["rows"][txn_ok],
+                    szs=meta["szs"][txn_ok].astype(np.uint16),
+                    tsorigs=meta["tsorigs"][txn_ok],
+                    seqs=meta["seqs"][txn_ok],
+                )
+            )
+            self._outq_txns += int(txn_ok.sum())
+
+    def _publish_ready(self, ctx: MuxCtx) -> None:
+        while self._outq and ctx.credits > 0:
+            b = self._outq[0]
+            n = len(b["tags"])
+            if n <= ctx.credits:
+                self._outq.popleft()
+                ctx.publish(b["tags"], b["rows"], b["szs"], tsorigs=b["tsorigs"])
+                ctx.credits -= n
+                self._outq_txns -= n
+            else:
+                m = ctx.credits
+                ctx.publish(
+                    b["tags"][:m], b["rows"][:m], b["szs"][:m],
+                    tsorigs=b["tsorigs"][:m],
+                )
+                for k in ("tags", "rows", "szs", "tsorigs", "seqs"):
+                    b[k] = b[k][m:]
+                ctx.credits = 0
+                self._outq_txns -= m
+
+    def after_credit(self, ctx: MuxCtx) -> None:
+        self._land_results(ctx)
+        self._publish_ready(ctx)
+        # keep the devices fed: a full batch whenever the pool has room;
+        # a partial one only once the in-ring came back empty (trickle
+        # traffic: nothing fuller is coming)
+        if (
+            self._staged_lanes
+            and (self._staged_lanes >= self.max_lanes
+                 or (self._drain_open and not self._got))
+            and self._pool.can_accept()
+        ):
+            self._submit_front(self.max_lanes)
+        self._mirror_policy_metrics(ctx)
+
+    def _mirror_policy_metrics(self, ctx: MuxCtx) -> None:
+        """Expose the pool's degradation state in the shared metrics
+        region (monitors read it live).  Aggregates every iteration;
+        per-device rows every 16th (they are O(devices) set calls)."""
+        pool = self._pool
+        ps = self._policies
+        m = ctx.metrics
+        fb = sum(p.fallback_batches for p in ps)
+        if self._tracer is not None and fb > self._prev_fallback:
+            self._tracer.point(SPAN.FALLBACK, aux64=fb - self._prev_fallback)
+        self._prev_fallback = fb
+        m.set("fallback_batches", fb)
+        m.set("device_errors", sum(p.device_errors for p in ps))
+        m.set("device_trips", sum(p.device_trips for p in ps))
+        m.set("host_reprobes", sum(p.host_reprobes for p in ps))
+        m.set("pool_resubmits", pool.resubmits)
+        m.set("pool_late_results", pool.late_results)
+        self._mirror_tick += 1
+        if (self._mirror_tick & 0xF) != 1:
+            return
+        now = time.monotonic()
+        for i, w in enumerate(pool.workers):
+            p = ps[i]
+            m.set(f"dev{i}_depth", w.reqq.qsize())
+            m.set(f"dev{i}_inflight", max(w.inflight(), 0))
+            m.set(f"dev{i}_landed", w.landed_n)
+            m.set(f"dev{i}_failed", p.device_errors + p.device_stalls)
+            degraded = (
+                # a cleanly stopped worker (halt) is not a fault; a
+                # dead/errored one mid-run is
+                (not w.alive() and not pool._stopping)
+                or w.error is not None
+                or p.stalled
+                or (p.tripped and not p.healthy(now))
+            )
+            if (
+                self._tracer is not None
+                and degraded
+                and not self._prev_degraded.get(i)
+            ):
+                self._tracer.point(SPAN.QUARANTINE, aux16=i)
+            self._prev_degraded[i] = int(degraded)
+            m.set(f"dev{i}_degraded", int(degraded))
+
+    def on_crash(self, ctx: MuxCtx) -> None:
+        """Restart hook (called after the dead incarnation's thread was
+        joined, before on_boot re-runs): drop in-flight host state — a
+        ring replay re-delivers anything the dead incarnation consumed
+        but never forwarded.  The policy objects (device functions + trip
+        state) survive into the next incarnation."""
+        if self._pool is not None:
+            zombies, _dropped = self._pool.abort()
+            for i in zombies:
+                # the zombie worker (stuck mid device/host call; threads
+                # are unkillable) still holds its old policy — detach a
+                # fresh copy so its late dispatch/land calls can't
+                # corrupt the live incarnation's degradation state
+                self._policies[i] = _clone_policy(
+                    self._policies[i],
+                    trip_after=self.fallback_trip,
+                    reprobe_every=self.fallback_reprobe,
+                )
+            self._pool = None
+        self._staged.clear()
+        self._staged_lanes = 0
+        self._outq.clear()
+        self._outq_txns = 0
+
+    def on_halt(self, ctx: MuxCtx) -> None:
+        # drain everything: staged -> devices -> results -> downstream.
+        # consumers are still running (the topology halts upstream-first),
+        # so credits keep freeing.
+        while self._staged_lanes:
+            self._submit_front(self.max_lanes)
+        pool = self._pool
+        deadline = time.monotonic() + 60.0
+        while not pool.idle() and time.monotonic() < deadline:
+            self._land_results(ctx)
+            if pool.outstanding:
+                time.sleep(1e-3)
+        pool.stop()
+        self._land_results(ctx)
+        deadline = time.monotonic() + 30.0
+        while self._outq and time.monotonic() < deadline:
+            cr = min(o.cr_avail() for o in ctx.outs) if ctx.outs else 0
+            if cr <= 0:
+                time.sleep(100e-6)
+                continue
+            ctx.credits = cr
+            self._publish_ready(ctx)
+        self._mirror_tick = 0  # force the per-device rows one last time
+        self._mirror_policy_metrics(ctx)
+
+
+def _resolve_devices(devices, dev, device_fn) -> list[int]:
+    """`devices` spec -> device ordinals (pool domains).
+
+    "auto" counts the local CUDA cards ONLY for a real card tile (a host
+    tile or a stubbed one never asks); int N = ordinals 0..N-1 (logical
+    domains when stubbed or on the CPU); an explicit list is taken
+    verbatim (disjoint ordinal sets across seq-sharded replicas — see
+    disco.topo.device_assignments)."""
+    if devices in (None, 1, "off"):
+        return [0]  # "off" mirrors disco.topo.device_assignments
+    if devices == "auto":
+        if dev is not None and dev.type == "cuda" and device_fn is None:
+            return list(range(D.local_device_count()))
+        return [0]
+    if isinstance(devices, int):
+        return list(range(max(devices, 1)))
+    out = [int(d) for d in devices]
+    return out or [0]
+
+
+def _clone_policy(old, *, trip_after: int, reprobe_every: int):
+    """Fresh policy object carrying over the old one's degradation state
+    (a wedged zombie thread keeps a dead reference instead)."""
+    if isinstance(old, DevicePolicy):
+        p = DevicePolicy(
+            old.device_fn, old.host_fn,
+            index=old.index,
+            trip_after=old.trip_after,
+            backoff_base_s=old.backoff_base_s,
+            backoff_max_s=old.backoff_max_s,
+            stall_patience_s=old.stall_patience_s,
+            fault_hook=old.fault_hook,
+        )
+        for attr in ("backoff_s", "quarantined_until", "device_stalls"):
+            setattr(p, attr, getattr(old, attr))
+        # NOT `stalled`: only the wedged call's return clears that flag,
+        # and the zombie holds the OLD object — a copied flag would
+        # quarantine the clone forever
+    else:
+        p = FallbackPolicy(
+            old.device_fn, old.host_fn,
+            trip_after=trip_after,
+            reprobe_every=reprobe_every,
+            fault_hook=old.fault_hook,
+        )
+    for attr in (
+        "consec_failures", "tripped", "fallback_batches",
+        "device_errors", "device_trips", "host_reprobes",
+    ):
+        setattr(p, attr, getattr(old, attr))
+    return p
+
+
+def _split_chunk(chunk: dict, k_txns: int, k_lanes: int) -> tuple[dict, dict]:
+    """Split a staged chunk after k_txns txns / k_lanes lanes."""
+    head, tail = {}, {}
+    for key in ("rows", "szs", "tsorigs", "sig_cnt", "tags", "seqs"):
+        head[key], tail[key] = chunk[key][:k_txns], chunk[key][k_txns:]
+    for key in ("digests", "sigs", "pubs"):
+        head[key], tail[key] = chunk[key][:k_lanes], chunk[key][k_lanes:]
+    return head, tail
+
+
+def _pad2(a: np.ndarray, n: int) -> np.ndarray:
+    if len(a) == n:
+        return a
+    out = np.zeros((n,) + a.shape[1:], dtype=a.dtype)
+    out[: len(a)] = a
+    return out

@@ -553,3 +553,48 @@ def test_plain_ops_on_card_match_cpu(dev):
                                   B3.blake3(msgs, lens, device="cpu").numpy())
     pairs = [(bytes([i]) * 32, b"msg %d" % i) for i in range(6)]
     assert SIGN.sign_many(pairs) == [hostpath.sign(s, m) for s, m in pairs]
+
+
+def test_ingress_topology_on_card(dev):
+    """The small ingress topology (synth -> verify on the card -> dedup ->
+    sink, tests/test_pipeline.py's sizes): verdicts follow the pool's good
+    mask, dedup drops exactly the repeats, survivors byte-match the pool, and
+    every device batch launched verify_core once (after one warm-up)."""
+    from firedancer_tpu_torch import entry
+
+    VC.LAUNCHES = 0
+    r = entry.ingress(max_lanes=32, idle_sleep_s=1e-3)
+    c = r["counters"]
+    good = r["pool"]["good"]
+    n_good = int(good.sum())
+    assert 0 < n_good < 24
+    assert c["verify"]["in_frags"] == 48
+    assert c["verify"]["verify_fail_txns"] == (24 - n_good) * 2
+    assert c["verify"]["out_frags"] == n_good * 2
+    assert c["dedup"]["dup_txns"] == n_good
+    assert c["verify"]["fallback_batches"] == c["verify"]["device_errors"] == 0
+    assert VC.LAUNCHES == c["verify"]["device_batches"] + 1
+    np.testing.assert_array_equal(r["survivors"], r["pool"]["tags"][good])
+    rows, szs = r["pool"]["rows"], r["pool"]["szs"]
+    np.testing.assert_array_equal(r["payloads"], rows[good])
+    np.testing.assert_array_equal(r["sizes"], szs[good])
+
+
+def test_ingress_entry_counters_at_deployment_lanes(dev):
+    """The pipeline entry at max_lanes 4096 and 1232-byte messages: 8,192
+    frags over a 256-txn pool are exactly two full device batches, each one
+    verify_core launch; the counters follow the pool's good mask."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.tiles.synth import make_txn_pool
+
+    pool = make_txn_pool(256, corrupt_frac=0.1, seed=3)
+    VC.LAUNCHES = 0
+    r = entry.ingress(pool, total=8192, idle_sleep_s=1e-3)
+    c = r["counters"]
+    n_good = int(r["pool"]["good"].sum())
+    assert c["verify"]["device_batches"] == 2 and VC.LAUNCHES == 3
+    assert c["verify"]["verify_fail_txns"] == (256 - n_good) * 32
+    assert c["dedup"]["dup_txns"] == n_good * 31
+    assert c["sink"]["sunk_frags"] == n_good
+    assert c["verify"]["fallback_batches"] == c["verify"]["device_errors"] == 0
+    assert r["txns_per_s"] > 0 and len(r["landed_stamps"]) == 2

@@ -42,7 +42,10 @@ def test_port_has_files():
     for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py",
                  "sha256.py", "poh.py", "gf256.py", "reedsol.py", "sign.py",
                  "keccak256.py", "blake3.py", "entry.py", "dryrun.py", "mesh.py",
-                 "bench.py", "mux.py", "configure.py", "purity.py", "hotpath.py"):
+                 "bench.py", "mux.py", "configure.py", "purity.py", "hotpath.py",
+                 "rings.py", "tempo.py", "cbuild.py", "metrics.py", "trace.py",
+                 "topo.py", "txn.py", "wire.py", "pcap.py", "synth.py",
+                 "replay.py", "dedup.py", "sink.py"):
         assert want in names
 
 
@@ -84,6 +87,8 @@ def _entry_calls():
         "fresh_bloom": lambda: PL.fresh_bloom(),
         "entry": lambda: entry.entry(),
         "bench": lambda: bench.bench(lanes=2, msg_len=8),
+        "bench_pipeline": lambda: bench.pipeline(total=2),
+        "ingress": lambda: entry.ingress(),
         "run_verify_pool": lambda: dryrun.run_verify_pool(1, lanes=2),
         "dryrun_multichip": lambda: entry.dryrun_multichip(1),
         "run_steps": lambda: dryrun.run_steps(
@@ -100,7 +105,8 @@ ENTRY_POINTS = sorted([
     "verify_batch_digest_rlc",
     "sha256", "sha256_words32", "sha256_words64", "append_n", "mixin",
     "verify_entries", "encode", "recover", "public_keys", "sign_many",
-    "sign_batch", "keccak256", "blake3", "entry", "bench", "run_verify_pool",
+    "sign_batch", "keccak256", "blake3", "entry", "bench", "bench_pipeline",
+    "ingress", "run_verify_pool",
     "dryrun_multichip", "run_steps",
 ])
 
