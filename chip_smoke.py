@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's device ingress step (SHA-512 -> Ed25519 verify with the
-hand-written verify_core kernel -> aging-bloom dedup -> pack prefilter) and
+hand-written verify_core kernel -> aging-bloom dedup -> pack prefilter on
+the hand-written pack_select kernel) and
 its batch (RLC) verify path (verify_batch_digest_rlc: the decompress_niels
 and msm_buckets kernels, the plain finalization, the verify_core subgroup
 gate) at deployment size: B = 4096 lanes per batch, 1232-byte messages, the
@@ -44,6 +45,13 @@ candidates of 1024 account bits.  Phases, one JSON line each:
                full; and msm_buckets and msm_finalize at S = 128, 256, 512
                lane slots on the valid batch, the kernel held against its
                plain version and the batch verdict checked at each S
+  pack_select  the pack_select kernel against select_plain on the card and
+               the host greedy on pack_candidates(seed=7) (K = 1024, W2 =
+               32) and on edge cases (K = 1, all PAD_COST rows, cu_limit 0,
+               non-zero in-use sets); CUDA-event medians of kernel and
+               plain, the bound (bytes against word operations) and the
+               chain floor (K times one dependent step's cycles from the
+               kernel's probe, at the card's maximum SM clock)
 
 and the rest of ops/, each at the size its users run:
 
@@ -97,6 +105,20 @@ and the multi-device layer:
                p50/p99 at the sink, the verify hop's p99, ms per device
                batch from the pool's dispatch and land stamps, and the busy
                shares
+  leader       the leader pipeline through entry.leader: synth -> verify ->
+               dedup -> pack (depth 4096, K = 1024 over 1024 account bits,
+               2 ms cadence, 31 txns and 1.5M CU a microblock, its select
+               on the pack_select kernel) -> bank x 2 (fee-only) -> sink x
+               2, the tiles phase's pool and frags; three runs: select on at
+               the run loop's default idle sleep and at 1 ms, select off at
+               1 ms; held exactly: verify and dedup as in tiles, 466 txns
+               inserted and executed, 466 x 5000 lamports of fees,
+               completions == microblocks, the engine drained, the sinks'
+               microblocks hold the good pool's payloads once each with no
+               conflicting pair, pack_select launches == select calls, and
+               the first select calls' inputs held kernel against plain and
+               host; txns/s, microblocks, txns per microblock, e2e at the
+               sinks, the select's share of the wall time
   bench        python -m firedancer_tpu_torch.bench in a subprocess: one JSON
                line with bench.py's keys; then --mode pipeline (replay ->
                verify -> dedup -> sink, bench.py's sizes) at a 1 ms idle
@@ -414,10 +436,15 @@ def nbytes(*tensors) -> int:
 
 
 def _kernel_name(sym: str) -> str:
-    """`verify_core_kernel` of an Itanium-mangled `_Z18verify_core_kernelPKi...`
+    """`verify_core_kernel` of an Itanium-mangled `_Z18verify_core_kernelPKi...`,
+    `pack_select_kernel<8,1>` of a template's `_Z18pack_select_kernelILi8ELb1EEv...`
     (an extern "C" name as it is)."""
     m = re.match(r"_Z(\d+)", sym)
-    return sym[m.end(): m.end() + int(m.group(1))] if m else sym
+    if not m:
+        return sym
+    name = sym[m.end(): m.end() + int(m.group(1))]
+    t = re.match(r"I((?:L[a-z]\d+E)+)E", sym[m.end() + int(m.group(1)):])
+    return f"{name}<{','.join(re.findall(r'L[a-z](\d+)E', t.group(1)))}>" if t else name
 
 
 def ptxas_summary(log: str) -> dict:
@@ -533,6 +560,91 @@ def pack_candidates(seed: int):
         in_rw[b >> 6] |= one << np.uint64(b & 63)
     costs = rng.integers(1_000, 200_000, K_PACK).astype(np.int64)
     return rw, wr, in_rw, np.zeros(W_PACK, np.uint64), costs
+
+
+def pack_bound(K: int, W2: int) -> dict:
+    """The least time of a K-candidate scan over W2-word rows: its bytes
+    (each candidate's two rows and cost, the in-use words, the take mask)
+    at the memory rate against its word operations (per candidate and
+    word two ANDs and two ORs for the conflict, two ORs for the take) at
+    the 32-bit integer rate."""
+    nbytes_ = 2 * K * W2 * 4 + 2 * W2 * 4 + 8 * K + K
+    ops = 6 * K * W2
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    bytes_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
+    return {"bytes": nbytes_, "bytes_ms": bytes_ms, "int32_ops": ops, "ops_ms": ops_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_pack_select(dev, put) -> dict:
+    """The pack_select kernel against select_plain on the card and the host
+    greedy, at the deployment shape (pack_candidates: K = 1024, W2 = 32)
+    and on edge cases; times, the bound and the chain floor; -> the
+    kernel's row of the kernels line (launches filled in by the leader
+    phase, the main path)."""
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    rw, wr, in_rw, in_w, costs = pack_candidates(seed=7)
+    pad = costs.copy()
+    pad[:] = PS.PAD_COST
+    in_w2 = in_w.copy()
+    in_w2[5] = np.uint64(0xFFFF0000)
+    cases = {
+        "deployment": (rw, wr, in_rw, in_w, costs, CU_LIMIT, TXN_LIMIT),
+        "k1": (rw[:1], wr[:1], in_rw, in_w, costs[:1], CU_LIMIT, TXN_LIMIT),
+        "all_pad_cost": (rw, wr, in_rw, in_w, pad, CU_LIMIT, TXN_LIMIT),
+        "cu_limit_0": (rw, wr, in_rw, in_w, costs, 0, TXN_LIMIT),
+        "in_use_rw_and_w": (rw, wr, in_rw | in_w2, in_w2, costs, CU_LIMIT, TXN_LIMIT),
+    }
+    before = PS.LAUNCHES
+    checked, err = {}, 0
+    dev_in = None
+    for name, (a, b, c, d, e, cu, tl) in cases.items():
+        args = [put(PS.split_u32(x)) for x in (a, b, c, d)] + [put(e.astype(np.int64))]
+        ker = PS.select_impl(*args, cu, tl)
+        plain = PS.select_plain(*args, cu, tl)
+        sync()
+        host = host_greedy(a, b, c, d, e, cu, tl)
+        err = max(err, int((ker.int() - plain.int()).abs().max()))
+        if not (np.array_equal(ker.cpu().numpy(), plain.cpu().numpy())
+                and np.array_equal(ker.cpu().numpy(), host)):
+            raise AssertionError(f"pack_select {name}: kernel, plain and host differ")
+        checked[name] = int(host.sum())
+        if name == "deployment":
+            dev_in = args
+    if checked["all_pad_cost"] or checked["cu_limit_0"] or not checked["deployment"]:
+        raise AssertionError(f"pack_select takes {checked}")
+    if PS.LAUNCHES - before != len(cases):
+        raise AssertionError(f"pack_select launched {PS.LAUNCHES - before} times "
+                             f"for {len(cases)} cases")
+    K, W2 = dev_in[0].shape
+    ms = {"kernel": cuda_ms(lambda: PS.select_impl(*dev_in, CU_LIMIT, TXN_LIMIT), reps=50),
+          "plain": cuda_ms(lambda: PS.select_plain(*dev_in, CU_LIMIT, TXN_LIMIT),
+                           reps=3)}
+    bd = pack_bound(K, W2)
+    cycles = PS.chain_probe_cycles(1 << 20, dev)
+    mhz = max_sm_clock_mhz()
+    bd["chain_cycles_per_step"] = cycles
+    bd["chain_floor_ms"] = K * cycles / (mhz * 1e3)
+    # the probe at the kernel's own length: its CUDA-event time and its
+    # clock64 cycles give the SM clock a short one-warp launch runs at
+    probe_cycles = []
+    ms["chain_probe_at_K"] = cuda_ms(lambda: probe_cycles.append(PS.chain_probe(K, dev)),
+                                     reps=50)
+    bd["clock_mhz_in_short_launch"] = (statistics.median(int(c) for c in probe_cycles)
+                                       / (ms["chain_probe_at_K"] * 1e3))
+    bd["bound_share"] = bd["bound_ms"] / ms["kernel"]
+    bd["chain_floor_share"] = bd["chain_floor_ms"] / ms["kernel"]
+    emit({"phase": "pack_select", "K": K, "W2": W2, "cases_taken": checked,
+          "max_abs_err": err, "ms": ms, "bound": bd, "max_sm_clock_mhz": mhz,
+          "ns_per_candidate": ms["kernel"] * 1e6 / K, "card": nvidia_smi_line()})
+    return {"name": "pack_select", "route": "cuda",
+            "source": "firedancer_tpu_torch/csrc/pack_select.cu",
+            "replaces": "firedancer_tpu/ops/pack_select.py:46", "launches": None,
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"], "library_ms": None,
+            "chain_floor_ms": bd["chain_floor_ms"]}
 
 
 def host_greedy(rw, wr, in_rw, in_w, costs, cu_limit, txn_limit):
@@ -1121,10 +1233,10 @@ def stamps_summary(stamps, seconds: float) -> dict:
     }
 
 
-def check_tiles(r, launches: int) -> None:
-    """The tiles phase's exact checks; raises on any miss."""
+def check_tiles_front(r, launches: int) -> None:
+    """The verify and dedup tiles' exact checks (tiles and leader phases)."""
     c = r["counters"]
-    v, d = c["verify"], c["dedup"]
+    v = c["verify"]
     good = r["pool"]["good"]
     n_good, passes = int(good.sum()), TILES_FRAGS // TILES_POOL
     want = {
@@ -1136,14 +1248,25 @@ def check_tiles(r, launches: int) -> None:
         ("verify", "device_errors"): 0,
         ("verify", "device_trips"): 0,
         ("dedup", "dup_txns"): n_good * (passes - 1),
-        ("sink", "sunk_frags"): n_good,
+        ("dedup", "out_frags"): n_good,
     }
     got = {k: c[k[0]][k[1]] for k in want}
     if got != want:
-        raise AssertionError(f"tiles counters {got} != {want}")
+        raise AssertionError(f"verify/dedup counters {got} != {want}")
     if launches != v["device_batches"] + 1:
         raise AssertionError(f"verify_core launched {launches} times for "
                              f"{v['device_batches']} batches and one warm-up")
+
+
+def check_tiles(r, launches: int) -> None:
+    """The tiles phase's exact checks; raises on any miss."""
+    check_tiles_front(r, launches)
+    c = r["counters"]
+    v, d = c["verify"], c["dedup"]
+    good = r["pool"]["good"]
+    n_good = int(good.sum())
+    if c["sink"]["sunk_frags"] != n_good:
+        raise AssertionError(f"sink took {c['sink']['sunk_frags']} of {n_good}")
     if not np.array_equal(r["survivors"], r["pool"]["tags"][good]):
         raise AssertionError("sink survivors differ from the pool's good tags")
     if not (np.array_equal(r["payloads"], r["pool"]["rows"][good])
@@ -1209,6 +1332,135 @@ def phase_tiles() -> None:
           "kernel_time_share": {"idle_sleep_us": TILES_IDLE_S[-1] * 1e6,
                                 "txns_per_s": r["txns_per_s"], **share},
           "card": nvidia_smi_line(), "seconds": time.time() - t0})
+    return pool
+
+
+#: the leader phase's runs: (pack device select, the run loop's idle sleep)
+LEADER_RUNS = ((True, 50e-6), (True, 1e-3), (False, 1e-3))
+#: recorded select calls held against the plain version after each run
+LEADER_RECORDED = 3
+
+
+def microblock_conflicts(txns) -> int:
+    """Pairs in one microblock that write one account, or where one writes
+    an account the other reads (counted per account)."""
+    from firedancer_tpu_torch.ballet import txn as T
+
+    writes, reads = [], []
+    for t in txns:
+        d = T.parse(t)
+        writes += [bytes(d.acct_addr(t, j)) for j in d.writable_idxs()]
+        reads += [bytes(d.acct_addr(t, j)) for j in d.readonly_idxs()]
+    return len(writes) - len(set(writes)) + len(set(writes) & set(reads))
+
+
+def check_leader(r, vc_launches: int) -> None:
+    """The leader phase's exact checks; raises on any miss."""
+    from firedancer_tpu_torch.tiles import wire
+
+    check_tiles_front(r, vc_launches)
+    c = r["counters"]
+    good = r["pool"]["good"]
+    n_good, banks = int(good.sum()), [k for k in c if k.startswith("bank")]
+    p = c["pack"]
+    got = {"inserted_txns": p["inserted_txns"], "insert_rejected": p["insert_rejected"],
+           "executed_txns": sum(c[b]["executed_txns"] for b in banks),
+           "fees_lamports": sum(c[b]["fees_lamports"] for b in banks),
+           "malformed_microblocks": sum(c[b]["malformed_microblocks"] for b in banks)}
+    want = {"inserted_txns": n_good, "insert_rejected": 0, "executed_txns": n_good,
+            "fees_lamports": n_good * 5000, "malformed_microblocks": 0}
+    if got != want or p["completions"] != p["microblocks"]:
+        raise AssertionError(f"leader counters {got} != {want}, completions "
+                             f"{p['completions']} of {p['microblocks']} microblocks")
+    if any(r["pack_engine"].values()):
+        raise AssertionError(f"pack engine not drained: {r['pack_engine']}")
+    mbs = [m for per_sink in r["microblocks"] for m in per_sink]
+    if len(mbs) != p["microblocks"]:
+        raise AssertionError(f"sinks took {len(mbs)} of {p['microblocks']} microblocks")
+    rows, szs = r["pool"]["rows"], r["pool"]["szs"]
+    executed = sorted(t for _b, _h, txns in mbs for t in txns)
+    if executed != sorted(rows[i, : szs[i] - wire.TRAILER_SZ].tobytes()
+                          for i in np.flatnonzero(good)):
+        raise AssertionError("the sinks' microblocks differ from the good pool's payloads")
+    bad = [h for _b, h, txns in mbs if microblock_conflicts(txns)]
+    if bad:
+        raise AssertionError(f"microblocks {bad[:8]} hold conflicting txns")
+
+
+def phase_leader(dev, pool) -> int:
+    """The leader pipeline on the card through entry.leader (synth ->
+    verify -> dedup -> pack -> bank x 2 -> sink x 2) at the verify tile's
+    deployment size, three runs (LEADER_RUNS); -> pack_select's launches
+    in the first run."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.ops import pack_select as PS
+    from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
+
+    t0 = time.time()
+    orig = PS.select_noconflict
+    runs, first_launches = [], None
+    for select, idle_s in LEADER_RUNS:
+        calls = {"n": 0, "s": 0.0, "recorded": [], "ms": []}
+
+        def recording(*a, **kw):
+            t = time.perf_counter()
+            take = orig(*a, **kw)
+            dt = time.perf_counter() - t
+            calls["s"] += dt
+            calls["ms"].append(dt * 1e3)
+            calls["n"] += 1
+            if len(calls["recorded"]) < LEADER_RECORDED:
+                calls["recorded"].append(([np.array(x) for x in a[:5]], a[5], a[6], take))
+            return take
+
+        PS.select_noconflict = recording
+        try:
+            sync()
+            VC.LAUNCHES = 0
+            PS.LAUNCHES = 0
+            r = entry.leader(pool, total=TILES_FRAGS, max_lanes=B, n_banks=2,
+                             pack_device_select=select, idle_sleep_s=idle_s)
+            sync()
+            vc_launches, ps_launches = VC.LAUNCHES, PS.LAUNCHES
+        finally:
+            PS.select_noconflict = orig
+        check_leader(r, vc_launches)
+        if ps_launches != calls["n"] or (select and calls["n"] < 1):
+            raise AssertionError(f"pack_select launched {ps_launches} times for "
+                                 f"{calls['n']} select calls (select {select})")
+        # the recorded calls' inputs, again: kernel, plain on the card, host
+        for a, cu, tl, take in calls["recorded"]:
+            put = lambda x: torch_from(PS.split_u32(x), dev)  # noqa: E731
+            args = [put(x) for x in a[:4]] + [torch_from(a[4].astype(np.int64), dev)]
+            ker = PS.select_impl(*args, cu, tl).cpu().numpy()
+            plain = PS.select_plain(*args, cu, tl).cpu().numpy()
+            if not (np.array_equal(ker, take) and np.array_equal(plain, take)
+                    and np.array_equal(host_greedy(*a, cu, tl), take)):
+                raise AssertionError("a recorded select differs from select_plain")
+        if first_launches is None:
+            first_launches = ps_launches
+        c = r["counters"]
+        mbs = c["pack"]["microblocks"]
+        runs.append({
+            "pack_device_select": select, "idle_sleep_us": idle_s * 1e6,
+            "txns_per_s": r["txns_per_s"], "executed_per_s": r["executed_per_s"],
+            "seconds": r["seconds"], "front_seconds": r["front_seconds"],
+            "microblocks": mbs, "blocks": c["pack"]["blocks"],
+            "pack_loop_iters": c["pack"]["loop_iters"],
+            "mean_txns_per_microblock": c["pack"]["microblock_txns"] / mbs,
+            "microblocks_per_bank": [c[f"bank{i}"]["executed_microblocks"] for i in range(2)],
+            **{k: v for k, v in r.items() if k.endswith("_us")},
+            "verify_core_launches_after_warmup": vc_launches - 1,
+            "select_calls": calls["n"], "pack_select_launches": ps_launches,
+            "select_seconds": calls["s"], "select_share_of_wall": calls["s"] / r["seconds"],
+            "select_call_ms_median": (statistics.median(calls["ms"]) if calls["ms"]
+                                      else None),
+            "select_call_ms_max": max(calls["ms"], default=None),
+            "recorded_selects_checked": len(calls["recorded"])})
+    emit({"phase": "leader", "pool": TILES_POOL, "frags": TILES_FRAGS, "lanes": B,
+          "msg_width": W, "n_good": int(pool[2].sum()), "banks": 2, "checks": "exact",
+          "runs": runs, "card": nvidia_smi_line(), "seconds": time.time() - t0})
+    return first_launches
 
 
 #: the keys of bench.py's JSON line that the port's bench keeps
@@ -1262,13 +1514,16 @@ def phase_configure(t_start: float) -> None:
           "seconds_total": time.time() - t_start})
 
 
-def run_multi(dev, batches, single_bloom, keeps, metrics, t_start) -> None:
-    """The phases of the multi-device layer."""
+def run_multi(dev, batches, single_bloom, keeps, metrics, t_start) -> int:
+    """The phases of the multi-device layer and the tile pipelines; ->
+    pack_select's launches on the leader's first run."""
     phase_dist_step(dev, batches, single_bloom, keeps, metrics)
     phase_pool(dev, batches)
-    phase_tiles()
+    pool = phase_tiles()
+    launches = phase_leader(dev, pool)
     phase_bench()
     phase_configure(t_start)
+    return launches
 
 
 def run(dev) -> dict:
@@ -1363,6 +1618,7 @@ def run(dev) -> dict:
     costs_dev = put(pack_in[4])
     torch.cuda.reset_peak_memory_stats(dev)
     VC.LAUNCHES = 0
+    pack_select.LAUNCHES = 0
     keeps, metrics = [], []
     for bt in batches:
         keep, cur, met = step(bt["msgs"], bt["lens"], bt["sigs"], bt["pubs"],
@@ -1376,6 +1632,7 @@ def run(dev) -> dict:
     take = PL.pack_prefilter(*pack_dev, costs_dev, CU_LIMIT, TXN_LIMIT)
     sync()
     launches = VC.LAUNCHES
+    slice_pack_launches = pack_select.LAUNCHES
 
     for i, bt in enumerate(batches):
         want_keep, want_m = model.step(bt["tags2"], bt["ok"])
@@ -1393,10 +1650,13 @@ def run(dev) -> dict:
         raise AssertionError("pack prefilter differs from the host greedy")
     if launches < N_BATCHES + 1:
         raise AssertionError(f"verify_core launched {launches} times")
+    if slice_pack_launches != 1:
+        raise AssertionError(f"pack_select launched {slice_pack_launches} times")
     n_golden = check_golden(golden, batches[1], ok_digest)
     emit({"phase": "slice", "steps": N_BATCHES, "metrics": metrics,
           "rotations": bloom.rotations, "golden_lanes_checked": n_golden,
           "pack_taken": int(want_take.sum()), "verify_core_launches": launches,
+          "pack_select_launches": slice_pack_launches,
           "bloom_bytes_on_card": 2 * bloom.cur.numel() * 4,
           "peak_bytes_on_card": torch.cuda.max_memory_allocated(dev)})
 
@@ -1631,8 +1891,9 @@ def run(dev) -> dict:
             "msm_finalize_ms": cuda_ms(lambda: MSM.msm_finalize(bk, ph["udig"]), reps=3)}
     emit({"phase": "lanes_sweep", "sweep": sweep, "card": smi})
 
+    ps_row = phase_pack_select(dev, put)
     rest = run_rest(dev, batches)
-    run_multi(dev, batches, bloom, keeps, metrics, t_start)
+    ps_row["launches"] = run_multi(dev, batches, bloom, keeps, metrics, t_start)
 
     src = "firedancer_tpu_torch/csrc/"
     tpu = "firedancer_tpu/ops/ed25519/"
@@ -1649,7 +1910,7 @@ def run(dev) -> dict:
         "ms": ms[name], "plain_ms": ms[name + "_plain"],
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
         "library_ms": None,
-    } for name, file, where, n, err in rows] + rest})
+    } for name, file, where, n, err in rows] + rest + [ps_row]})
     print(nvidia_smi_line(), flush=True)
     return {"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),

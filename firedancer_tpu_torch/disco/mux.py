@@ -2,7 +2,8 @@
 
 A copy of firedancer_tpu/disco/mux.py for the port's thread runtime: the
 Python frag path of `run_loop`, the per-link latency attribution and the
-span-event trace points.  Not ported yet, and refused rather than ignored:
+span-event trace points, and the post-HALT `drain_straggler_ins`.  Not
+ported yet, and refused rather than ignored:
 the native stem (`run_loop(stem="native")` raises NotImplementedError).
 The hooks of modules the port does not have yet (fault injection, the
 run-loop profiler, elastic shard maps) are left out; they come back with
@@ -295,6 +296,52 @@ class Tile:
     def during_housekeeping(self, ctx: MuxCtx) -> None: ...
 
     def on_halt(self, ctx: MuxCtx) -> None: ...
+
+
+def drain_straggler_ins(
+    tile: Tile,
+    ctx: MuxCtx,
+    *,
+    only: tuple | None = None,
+    budget: int | None = None,
+    deadline_s: float | None = None,
+    default_budget: int = 4096,
+) -> int:
+    """Post-HALT straggler drain (the pack tile's on_halt drains its bank
+    completion rings with it): sweep the in-links through tile.on_frags
+    with the standard overrun accounting (metered + fseq-diag'd), bounded
+    per sweep by the outs' credit headroom.
+
+    `only` restricts the sweep to those in-link indices; `budget`
+    overrides the credit-derived bound.  With `deadline_s` the sweep
+    repeats until a full pass drains nothing or the deadline passes;
+    without it one sweep runs.  Returns frags drained by the final sweep."""
+    deadline = (
+        time.monotonic() + deadline_s if deadline_s is not None else None
+    )
+    got = 0
+    while True:
+        got = 0
+        idxs = range(len(ctx.ins)) if only is None else only
+        for i in idxs:
+            il = ctx.ins[i]
+            b = budget
+            if b is None:
+                b = min(
+                    (o.cr_avail() for o in ctx.outs),
+                    default=default_budget,
+                )
+            if b <= 0:
+                break
+            frags, il.seq, ovr = il.mcache.drain(il.seq, b)
+            if ovr:
+                ctx.metrics.inc("overrun_frags", ovr)
+                il.fseq.diag_add(0, ovr)
+            if len(frags):
+                got += len(frags)
+                tile.on_frags(ctx, i, frags)
+        if deadline is None or got == 0 or time.monotonic() >= deadline:
+            return got
 
 
 def _publish_fseqs(tile: Tile, ctx: MuxCtx) -> None:

@@ -270,9 +270,9 @@ class AgingBloom:
 def pack_prefilter(cand_rw32, cand_w32, in_use_rw32, in_use_w32, costs,
                    cu_limit, txn_limit):
     """Pack-candidate selection on the card: the greedy scan of
-    ops/pack_select.py over (K, W2) int32 bitset halves already on the
-    device; -> (K,) bool take mask.  Same int32 budget validation as
-    select_noconflict."""
+    ops/pack_select.py (on CUDA tensors the pack_select kernel) over
+    (K, W2) int32 bitset halves already on the device; -> (K,) bool take
+    mask.  Same int32 budget validation as select_noconflict."""
     pack_select.check_cu_limit(cu_limit)
     return pack_select.select_impl(
         cand_rw32, cand_w32, in_use_rw32, in_use_w32,

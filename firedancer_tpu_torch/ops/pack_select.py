@@ -1,12 +1,18 @@
-"""Device-side microblock candidate selection, in plain PyTorch.
+"""Device-side microblock candidate selection: wrapper, plain version and
+launch counter.
 
 The counterpart of firedancer_tpu/ops/pack_select.py (a `lax.scan`, not a
 Pallas kernel there): walk candidates in priority order; take one iff its
 writable accounts do not intersect any in-use account, its readable accounts
 do not intersect any write-in-use account, it fits the remaining CU budget
-and the txn limit.  The sequential state is two bitset vectors and two
-counters, carried through a Python loop over the K candidates as device
-tensors (no host round trip per candidate).
+and the txn limit.
+
+On a CUDA tensor `select_impl` launches the hand-written Hopper kernel
+csrc/pack_select.cu (built by utils/kbuild.py): one block carries the
+selected sets in registers through the K candidates.  On a CPU tensor it
+runs `select_plain`, the same scan as a Python loop over tensors.  There is
+no other branch: a CUDA tensor goes through the kernel or the call raises.
+`LAUNCHES` counts kernel launches (never plain runs).
 
 u64 account bitsets arrive from the host engine and are split into 32-bit
 halves (held as int32 bit patterns) as the JAX module does.
@@ -14,10 +20,12 @@ halves (held as int32 bit patterns) as the JAX module does.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from ..utils import devices
+from ..utils import devices, kbuild
 from ..utils.hotpath import hot_path
 
 #: largest cu_limit the device scan supports; PAD_COST sentinel rows (used
@@ -25,15 +33,19 @@ from ..utils.hotpath import hot_path
 #: construction, so they are never taken
 CU_LIMIT_MAX = 2**30 - 1
 PAD_COST = 1 << 30
+#: widest bitset row (32-bit words) the kernel takes: 1024 threads of
+#: eight words (csrc/pack_select.cu PS_MAX_W2)
+MAX_W2 = 8192
+
+#: kernel launches since import (reset by setting it to 0)
+LAUNCHES = 0
 
 
-@hot_path(static=("cu_limit", "txn_limit"))
-def select_impl(cand_rw, cand_w, in_use_rw, in_use_w, costs, cu_limit: int,
-                txn_limit: int):
-    """The greedy scan over tensors on one device.
-
-    cand_rw/cand_w: (K, W2) int32 bitset words; in_use_*: (W2,) int32;
-    costs: (K,) int64.  Returns (K,) bool take mask on the same device."""
+def select_plain(cand_rw, cand_w, in_use_rw, in_use_w, costs, cu_limit: int,
+                 txn_limit: int):
+    """The plain version: the greedy scan as a loop over tensors on one
+    device, the sequential state carried as device tensors (no host round
+    trip per candidate)."""
     K = cand_rw.shape[0]
     sel_rw = in_use_rw.clone()
     sel_w = in_use_w.clone()
@@ -49,7 +61,104 @@ def select_impl(cand_rw, cand_w, in_use_rw, in_use_w, costs, cu_limit: int,
         cu_used = cu_used + torch.where(take, c, zero)
         taken = taken + take.to(torch.int64)
         takes.append(take)
+    if not takes:
+        return torch.zeros(0, dtype=torch.bool, device=costs.device)
     return torch.stack(takes)
+
+
+def _check(name, t, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(cand_rw, cand_w, in_use_rw, in_use_w, costs, cu_limit, txn_limit):
+    global LAUNCHES
+    if cand_rw.dim() != 2:
+        raise ValueError(f"cand_rw must be (K, W2), got {tuple(cand_rw.shape)}")
+    K, W2 = cand_rw.shape
+    dev = cand_rw.device
+    for name, t, shape, dtype in (
+        ("cand_rw", cand_rw, (K, W2), torch.int32),
+        ("cand_w", cand_w, (K, W2), torch.int32),
+        ("in_use_rw", in_use_rw, (W2,), torch.int32),
+        ("in_use_w", in_use_w, (W2,), torch.int32),
+        ("costs", costs, (K,), torch.int64),
+    ):
+        _check(name, t, shape, dtype, dev)
+    if not 1 <= W2 <= MAX_W2:
+        raise ValueError(f"pack_select: W2 = {W2} words, the kernel takes 1..{MAX_W2}")
+    out = torch.empty(K, dtype=torch.bool, device=dev)
+    if K == 0:
+        return out
+    fn = kbuild.load("pack_select").fdt_pack_select_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        ctypes.c_int64] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cand_rw.data_ptr(), cand_w.data_ptr(), in_use_rw.data_ptr(),
+                 in_use_w.data_ptr(), costs.data_ptr(), out.data_ptr(), K, W2,
+                 cu_limit, txn_limit, stream)
+    if err != 0:
+        raise RuntimeError(f"pack_select kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+@hot_path(static=("cu_limit", "txn_limit"))
+def select_impl(cand_rw, cand_w, in_use_rw, in_use_w, costs, cu_limit: int,
+                txn_limit: int):
+    """The greedy scan over tensors on one device.
+
+    cand_rw/cand_w: (K, W2) int32 bitset words; in_use_*: (W2,) int32;
+    costs: (K,) int64.  Returns (K,) bool take mask on the same device.
+    CUDA tensors launch the kernel; CPU tensors run select_plain."""
+    if cand_rw.device.type == "cpu":
+        return select_plain(cand_rw, cand_w, in_use_rw, in_use_w, costs,
+                            cu_limit, txn_limit)
+    if cand_rw.device.type != "cuda":
+        raise ValueError(f"pack_select: unsupported device {cand_rw.device}")
+    return _launch(cand_rw, cand_w, in_use_rw, in_use_w, costs, cu_limit,
+                   txn_limit)
+
+
+def prepare(device) -> None:
+    """Build and load the kernel for a CUDA `device` without launching it,
+    so a tile's first select does not pay the build; nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        kbuild.load("pack_select")
+
+
+def chain_probe(n: int, device) -> torch.Tensor:
+    """Launch csrc/pack_select.cu's probe: one warp runs n dependent steps
+    of the kernel's decision on register words; -> its clock64 cycles, a
+    (1,) int64 tensor on `device` (not synchronized)."""
+    fn = kbuild.load("pack_select").fdt_pack_select_chain_probe_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dev = torch.device(device)
+    words = torch.arange(1, 65, dtype=torch.int32, device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(words.data_ptr(), n, cycles.data_ptr(), sink.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pack_select chain probe launch failed: cudaError {err}")
+    return cycles
+
+
+def chain_probe_cycles(n: int, device) -> float:
+    """Clock cycles of one dependent step of the kernel's decision (the
+    probe over n steps)."""
+    return int(chain_probe(n, device).cpu()[0]) / n
 
 
 def split_u32(a64: np.ndarray) -> np.ndarray:
@@ -72,7 +181,7 @@ def select_noconflict(cand_rw, cand_w, in_use_rw, in_use_w, costs,
 
     cand_rw/cand_w: (K, W) u64 account bitsets; in_use_*: (W,) u64;
     costs: (K,) int.  Returns the (K,) bool take mask as numpy.  Runs on
-    `device` (default: the CUDA card)."""
+    `device` (default: the CUDA card, through the kernel)."""
     check_cu_limit(cu_limit)
     dev = devices.resolve(device)
     t = [

@@ -4,8 +4,10 @@ A copy of firedancer_tpu/tango/rings.py, trimmed to what the thread
 runtime needs: `Workspace`, `MCache`, `DCache`, `FSeq`, `CNC`, `TCache`,
 `cr_avail`, the wrap-safe `seq_*` helpers, the rejoin helpers and the
 native `trace_*` helpers.  The library is built from the port's own copies
-of fdt_tango.c, fdt_sha512.c and fdt_trace.c (tango/native/) by
-utils/cbuild.py into the git-ignored _build/, at first use.  The native
+of fdt_tango.c, fdt_sha512.c, fdt_trace.c and fdt_pack.c (tango/native/)
+by utils/cbuild.py into the git-ignored _build/, at first use; `_load`
+injects the SHA-512 tables and the pack cost model's constants into this
+library's own statics.  The native
 stem (`Stem`, `StemSpec`), the ABI digest and the process runtime's
 workspace attach are not ported yet.
 
@@ -44,6 +46,7 @@ _NATIVE_SOURCES = [
     _HERE / "native" / "fdt_tango.c",
     _HERE / "native" / "fdt_sha512.c",
     _HERE / "native" / "fdt_trace.c",
+    _HERE / "native" / "fdt_pack.c",
 ]
 
 #: the prefix of named workspaces' /dev/shm files (firedancer_tpu's use
@@ -127,12 +130,43 @@ def _load() -> ct.CDLL:
         "fdt_trace_hist_sample": (None, [vp, i64, i64]),
         "fdt_trace_span_block": (None, [vp, vp, i64]),
         "fdt_trace_span": (None, [vp, u64, u64, u64, u64, u64, u64, u64]),
+        "fdt_pack_init_consts": (None, [vp, vp, vp, vp, i64]),
+        "fdt_txn_scan": (
+            i64,
+            [vp, i64, i64, vp, i64, i64] + [vp] * 12
+            + [vp, vp, vp, vp, i64, vp, vp, i64, vp, i64, vp],
+        ),
+        "fdt_pack_select_x": (
+            i64,
+            [vp, i64, vp, vp, i64, vp, vp, i64, vp, vp, i64, vp, vp, i64,
+             vp, vp, i64, vp, vp, i64, i64, i64, i64, vp, vp],
+        ),
+        "fdt_pack_release_x": (
+            None,
+            [vp, i64, vp, vp, i64, vp, vp, i64, vp, vp, i64, vp, vp, i64],
+        ),
+        "fdt_mb_encode": (i64, [vp, i64, vp, vp, i64, u32, u32, vp, i64]),
+        "fdt_mb_decode": (i64, [vp, i64, vp, i64, vp, i64]),
     })
     # the SHA-512 constant tables are globals of THIS library (a second
     # copy of the ring library in the process keeps its own): inject them
     k = np.array(K64, dtype=np.uint64)
     h = np.array(H64, dtype=np.uint64)
     lib.fdt_sha512_init_consts(k.ctypes.data, h.ctypes.data)
+    # the pack cost model's consensus constants, from the port's own
+    # ballet/compute_budget.py and base58.py (the Python tables stay
+    # authoritative; C never duplicates them)
+    from ..ballet import compute_budget as CB
+    from ..ballet.base58 import decode_32
+
+    pids = np.frombuffer(b"".join(CB.BUILTIN_COSTS), np.uint8).copy()
+    costs = np.array(list(CB.BUILTIN_COSTS.values()), np.uint64)
+    cb = np.frombuffer(CB.COMPUTE_BUDGET_PROGRAM_ID, np.uint8).copy()
+    vote = np.frombuffer(
+        decode_32("Vote111111111111111111111111111111111111111"), np.uint8
+    ).copy()
+    lib.fdt_pack_init_consts(cb.ctypes.data, vote.ctypes.data,
+                             pids.ctypes.data, costs.ctypes.data, len(costs))
     return lib
 
 

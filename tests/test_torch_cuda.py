@@ -98,7 +98,7 @@ def _core_inputs(n: int):
 
 
 def test_kernel_builds(dev):
-    names = ["decompress_niels", "msm", "sha256", "verify_core"]
+    names = ["decompress_niels", "msm", "pack_select", "sha256", "verify_core"]
     assert kbuild.build_all() == names
     for name in names:
         assert kbuild.library_path(name).exists()
@@ -598,3 +598,122 @@ def test_ingress_entry_counters_at_deployment_lanes(dev):
     assert c["sink"]["sunk_frags"] == n_good
     assert c["verify"]["fallback_batches"] == c["verify"]["device_errors"] == 0
     assert r["txns_per_s"] > 0 and len(r["landed_stamps"]) == 2
+
+
+def _pack_case(K: int, W2: int, seed: int, pad: bool = False):
+    """(K, W2) int32 bitset words with a few bits each, non-zero in-use
+    words, int64 costs (PAD_COST rows when pad)."""
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    rng = np.random.default_rng(seed)
+    rw = np.zeros((K, W2), np.uint32)
+    wr = np.zeros((K, W2), np.uint32)
+    one = np.uint32(1)
+    for i in range(K):
+        for b in rng.integers(0, W2 * 32, 4):
+            rw[i, b >> 5] |= one << np.uint32(b & 31)
+        for b in rng.integers(0, W2 * 32, 2):
+            wr[i, b >> 5] |= one << np.uint32(b & 31)
+    rw |= wr
+    in_rw = np.zeros(W2, np.uint32)
+    in_rw[rng.integers(0, W2)] = np.uint32(0x00F0F000)
+    costs = rng.integers(1_000, 200_000, K).astype(np.int64)
+    if pad:
+        costs[rng.random(K) < 0.3] = PS.PAD_COST
+    return [torch.from_numpy(np.ascontiguousarray(a.view(np.int32)))
+            for a in (rw, wr, in_rw, np.zeros(W2, np.uint32))] + [torch.from_numpy(costs)]
+
+
+@pytest.mark.parametrize("K,W2", [(1, 2), (33, 32), (1024, 32), (1024, 64), (257, 300),
+                                  (64, 8192)])
+@pytest.mark.parametrize("cu_limit,txn_limit", [(1_500_000, 31), (0, 31), (10**8, 1000)])
+def test_pack_select_kernel_matches_plain(dev, K, W2, cu_limit, txn_limit):
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    args = _pack_case(K, W2, seed=K + W2, pad=cu_limit > 0)
+    before = PS.LAUNCHES
+    got = PS.select_impl(*(t.to(dev) for t in args), cu_limit, txn_limit)
+    assert PS.LAUNCHES == before + 1
+    want = PS.select_plain(*args, cu_limit, txn_limit)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_pack_select_wrapper_rejects_bad_inputs(dev):
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    rw, wr, in_rw, in_w, costs = (t.to(dev) for t in _pack_case(4, 2, seed=1))
+    with pytest.raises(TypeError, match="int64"):
+        PS.select_impl(rw, wr, in_rw, in_w, costs.int(), 10, 2)
+    with pytest.raises(ValueError, match="shape"):
+        PS.select_impl(rw, wr[:3], in_rw, in_w, costs, 10, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        PS.select_impl(rw.t().contiguous().t(), wr, in_rw, in_w, costs, 10, 2)
+    assert PS.select_impl(rw[:0], wr[:0], in_rw, in_w, costs[:0], 10, 2).shape == (0,)
+
+
+def test_pack_select_noconflict_and_prefilter_on_card(dev):
+    """select_noconflict with device=None runs the kernel; the step's
+    pack_prefilter on CUDA tensors too."""
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    rng = np.random.default_rng(5)
+    rw = rng.integers(0, 2**63, (1024, 16), dtype=np.uint64) & np.uint64(0x0101010101010101)
+    wr = rw & np.uint64(0x0001000100010001)
+    costs = rng.integers(1_000, 200_000, 1024)
+    z = np.zeros(16, np.uint64)
+    before = PS.LAUNCHES
+    got = PS.select_noconflict(rw, wr, z, z, costs, 1_500_000, 31)
+    want = PS.select_noconflict(rw, wr, z, z, costs, 1_500_000, 31, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    t = [torch.from_numpy(PS.split_u32(a)).to(dev) for a in (rw, wr, z, z)]
+    take = PL.pack_prefilter(*t, torch.from_numpy(costs).to(dev), 1_500_000, 31)
+    np.testing.assert_array_equal(take.cpu().numpy(), want)
+    assert PS.LAUNCHES == before + 2
+    assert PS.chain_probe_cycles(4096, dev) > 0
+
+
+def test_leader_topology_on_card(dev):
+    """entry.leader on the card (verify_core and the pack_select kernel) at
+    a small size: every good txn executed once, the engine drained, and one
+    pack_select launch per schedule call that had non-vote candidates."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.ballet import txn as T
+    from firedancer_tpu_torch.ops import pack_select as PS
+    from firedancer_tpu_torch.tiles import wire
+    from firedancer_tpu_torch.tiles.synth import make_txn_pool
+
+    pool = make_txn_pool(64, corrupt_frac=0.2, seed=9)
+    rows, szs, good = pool
+    calls = []
+    orig = PS.select_noconflict
+
+    def counting(*a, **kw):
+        calls.append(len(a[4]))
+        return orig(*a, **kw)
+
+    PS.select_noconflict = counting
+    try:
+        PS.LAUNCHES = 0
+        r = entry.leader(pool, total=256, max_lanes=128, idle_sleep_s=1e-3)
+    finally:
+        PS.select_noconflict = orig
+    c = r["counters"]
+    n_good = int(good.sum())
+    assert c["pack"]["inserted_txns"] == n_good
+    assert c["pack"]["completions"] == c["pack"]["microblocks"] > 0
+    assert sum(c[f"bank{i}"]["executed_txns"] for i in range(2)) == n_good
+    assert sum(c[f"bank{i}"]["fees_lamports"] for i in range(2)) == 5000 * n_good
+    assert r["pack_engine"] == {"inflight": 0, "pending": 0, "outstanding": 0,
+                                "lock_keys": 0, "lock_counts": 0, "bit_refs": 0}
+    assert calls and PS.LAUNCHES == len(calls) and set(calls) == {1024}
+    mbs = [m for per_sink in r["microblocks"] for m in per_sink]
+    got = sorted(t for _b, _h, txns in mbs for t in txns)
+    assert got == sorted(rows[i, : szs[i] - wire.TRAILER_SZ].tobytes()
+                         for i in np.flatnonzero(good))
+    for _b, _h, txns in mbs:
+        writes, reads = [], []
+        for t in txns:
+            d = T.parse(t)
+            writes += [bytes(d.acct_addr(t, j)) for j in d.writable_idxs()]
+            reads += [bytes(d.acct_addr(t, j)) for j in d.readonly_idxs()]
+        assert len(set(writes)) == len(writes) and not set(writes) & set(reads)

@@ -39,13 +39,20 @@ def test_port_has_files():
     names = {p.name for p in PORT_FILES}
     rel = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "firedancer_tpu_torch/tiles/verify.py" in rel
+    for want in ("firedancer_tpu_torch/ballet/pack.py", "firedancer_tpu_torch/tiles/pack.py",
+                 "firedancer_tpu_torch/tiles/bank.py"):
+        assert want in rel
+    for native in ("csrc/pack_select.cu", "tango/native/fdt_pack.c",
+                   "tango/native/fdt_pack.h"):
+        assert (ROOT / "firedancer_tpu_torch" / native).exists()
     for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py",
                  "sha256.py", "poh.py", "gf256.py", "reedsol.py", "sign.py",
                  "keccak256.py", "blake3.py", "entry.py", "dryrun.py", "mesh.py",
                  "bench.py", "mux.py", "configure.py", "purity.py", "hotpath.py",
                  "rings.py", "tempo.py", "cbuild.py", "metrics.py", "trace.py",
                  "topo.py", "txn.py", "wire.py", "pcap.py", "synth.py",
-                 "replay.py", "dedup.py", "sink.py"):
+                 "replay.py", "dedup.py", "sink.py", "base58.py",
+                 "compute_budget.py", "pack.py", "bank.py", "pack_select.py"):
         assert want in names
 
 
@@ -89,6 +96,7 @@ def _entry_calls():
         "bench": lambda: bench.bench(lanes=2, msg_len=8),
         "bench_pipeline": lambda: bench.pipeline(total=2),
         "ingress": lambda: entry.ingress(),
+        "leader": lambda: entry.leader(),
         "run_verify_pool": lambda: dryrun.run_verify_pool(1, lanes=2),
         "dryrun_multichip": lambda: entry.dryrun_multichip(1),
         "run_steps": lambda: dryrun.run_steps(
@@ -106,7 +114,7 @@ ENTRY_POINTS = sorted([
     "sha256", "sha256_words32", "sha256_words64", "append_n", "mixin",
     "verify_entries", "encode", "recover", "public_keys", "sign_many",
     "sign_batch", "keccak256", "blake3", "entry", "bench", "bench_pipeline",
-    "ingress", "run_verify_pool",
+    "ingress", "leader", "run_verify_pool",
     "dryrun_multichip", "run_steps",
 ])
 

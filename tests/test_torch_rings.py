@@ -38,7 +38,7 @@ def test_port_library_is_its_own_build():
     so = cbuild.library_path("fdt_tango", R._NATIVE_SOURCES)
     assert so.exists() and so.is_relative_to(cbuild.BUILD)
     assert [p.name for p in R._NATIVE_SOURCES] == [
-        "fdt_tango.c", "fdt_sha512.c", "fdt_trace.c"]
+        "fdt_tango.c", "fdt_sha512.c", "fdt_trace.c", "fdt_pack.c"]
     assert R._Library._cdll._name == str(so) != RJ._lib._name
     # named workspaces live under the port's own /dev/shm prefix, which the
     # JAX package's fdt_wksp_* globs never match
