@@ -48,10 +48,24 @@ candidates of 1024 account bits.  Phases, one JSON line each:
   pack_select  the pack_select kernel against select_plain on the card and
                the host greedy on pack_candidates(seed=7) (K = 1024, W2 =
                32) and on edge cases (K = 1, all PAD_COST rows, cu_limit 0,
-               non-zero in-use sets); CUDA-event medians of kernel and
-               plain, the bound (bytes against word operations) and the
-               chain floor (K times one dependent step's cycles from the
-               kernel's probe, at the card's maximum SM clock)
+               non-zero in-use sets, takes at live rows 31 and 32, K not a
+               multiple of 32, W2 of 1, 2, 33 and 300 over two segments,
+               txn_limit 1, a budget spent exactly, zero-cost rows under
+               cu_limit 0, in-use conflicts on most rows), through
+               select_impl and (even W2) the pack tile's Selector; the
+               chain's steps per case, each within ceil(live / 32) + takes
+               (one more a segment after the first); the kernel's
+               CUDA-event ms around one call (the kernels line's ms, the
+               method of every row) and its device ms with 20 launches
+               queued behind a spin (device_ms_queued), the plain
+               version's, the bound (bytes against word operations) and
+               the chain floor (steps without and with a take times the
+               probe's cycles for each, at the card's maximum SM clock;
+               edge cases and the bound from tests/torch_pack_cases.py),
+               the kernel's own clock64 cycles by
+               phase; the Selector's host ms per call, and a select issued
+               while a spin is queued on the legacy default stream must
+               return before the spin ends
 
 and the rest of ops/, each at the size its users run:
 
@@ -115,10 +129,14 @@ and the multi-device layer:
                inserted and executed, 466 x 5000 lamports of fees,
                completions == microblocks, the engine drained, the sinks'
                microblocks hold the good pool's payloads once each with no
-               conflicting pair, pack_select launches == select calls, and
-               the first select calls' inputs held kernel against plain and
-               host; txns/s, microblocks, txns per microblock, e2e at the
-               sinks, the select's share of the wall time
+               conflicting pair, pack_select launches == select calls,
+               every call's chain steps within its bound, and the first
+               select calls' inputs held kernel against plain and host;
+               txns/s, microblocks, txns per microblock, e2e at the sinks,
+               the select call's host ms (median, max) and its share of the
+               wall time, the chain's steps per call, the pack engine's
+               schedule calls and host seconds (all, and the device-select
+               part)
   bench        python -m firedancer_tpu_torch.bench in a subprocess: one JSON
                line with bench.py's keys; then --mode pipeline (replay ->
                verify -> dedup -> sink, bench.py's sizes) at a 1 ms idle
@@ -577,12 +595,42 @@ def pack_bound(K: int, W2: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+#: chip_smoke's pack_select edge cases: name -> (tests/torch_pack_cases.py
+#: case, K, W2): takes at live rows 31 and 32 (the last of a window and the
+#: first of the next), K not a multiple of 32, W2 of 1, 2, 33 and 300 (two
+#: segments), txn_limit 1, a budget spent exactly, zero-cost rows under
+#: cu_limit 0, and in-use conflicts on most rows
+PACK_EDGE_CASES = {
+    "take_at_31": ("take_at_31", 1024, 32), "take_at_32": ("take_at_32", 1024, 32),
+    "k1000_w32": ("random", 1000, 32), "k97_w1": ("random", 97, 1),
+    "k300_w2": ("random", 300, 2), "k100_w33": ("random", 100, 33),
+    "k4173_w300": ("random", 4096 + 77, 300), "txn_limit_1": ("txn_limit_1", 1024, 32),
+    "budget_exact": ("budget_exact", 1024, 32),
+    "zero_cost_cu_limit_0": ("zero_cost_cu_limit_0", 1024, 32),
+    "in_use_most": ("in_use_most", 1024, 32)}
+
+
+def pack_cases_module():
+    """tests/torch_pack_cases.py: the seeded edge cases and the chain's
+    step bound, shared with the tests."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_pack_cases
+
+    return torch_pack_cases
+
+
 def phase_pack_select(dev, put) -> dict:
     """The pack_select kernel against select_plain on the card and the host
     greedy, at the deployment shape (pack_candidates: K = 1024, W2 = 32)
-    and on edge cases; times, the bound and the chain floor; -> the
-    kernel's row of the kernels line (launches filled in by the leader
-    phase, the main path)."""
+    and on edge cases, through select_impl and through the pack tile's
+    Selector (u64 rows); the chain's steps per call against its bound;
+    times, the bound and the chain floor; the selector's host ms and its
+    stream's independence from the legacy default stream; -> the kernel's
+    row of the kernels line (launches filled in by the leader phase, the
+    main path)."""
+    import torch
+
+    from firedancer_tpu_torch.bench_select import cuda_ms_queued
     from firedancer_tpu_torch.ops import pack_select as PS
 
     rw, wr, in_rw, in_w, costs = pack_candidates(seed=7)
@@ -590,61 +638,113 @@ def phase_pack_select(dev, put) -> dict:
     pad[:] = PS.PAD_COST
     in_w2 = in_w.copy()
     in_w2[5] = np.uint64(0xFFFF0000)
-    cases = {
+    u32 = lambda a: np.ascontiguousarray(a).view(np.uint32)  # noqa: E731
+    cases = {name: tuple(u32(x) for x in c[:4]) + c[4:] for name, c in {
         "deployment": (rw, wr, in_rw, in_w, costs, CU_LIMIT, TXN_LIMIT),
         "k1": (rw[:1], wr[:1], in_rw, in_w, costs[:1], CU_LIMIT, TXN_LIMIT),
         "all_pad_cost": (rw, wr, in_rw, in_w, pad, CU_LIMIT, TXN_LIMIT),
         "cu_limit_0": (rw, wr, in_rw, in_w, costs, 0, TXN_LIMIT),
         "in_use_rw_and_w": (rw, wr, in_rw | in_w2, in_w2, costs, CU_LIMIT, TXN_LIMIT),
-    }
+    }.items()}
+    PC = pack_cases_module()
+    for name, (case, K, W2) in PACK_EDGE_CASES.items():
+        c = PC.edge_case(case, K, W2, seed=K + W2)
+        cases[name] = tuple(u32(x) for x in c[:4]) + c[4:]
     before = PS.LAUNCHES
-    checked, err = {}, 0
-    dev_in = None
+    launches = 0
+    checked, steps, err = {}, {}, 0
+    dev_in = stats_dep = None
     for name, (a, b, c, d, e, cu, tl) in cases.items():
-        args = [put(PS.split_u32(x)) for x in (a, b, c, d)] + [put(e.astype(np.int64))]
-        ker = PS.select_impl(*args, cu, tl)
+        args = [put(x.view(np.int32)) for x in (a, b, c, d)] + [put(e.astype(np.int64))]
+        stats = torch.full((4,), -1, dtype=torch.int64, device=dev)
+        ker = PS.select_impl(*args, cu, tl, stats=stats)
         plain = PS.select_plain(*args, cu, tl)
         sync()
+        launches += 1
         host = host_greedy(a, b, c, d, e, cu, tl)
-        err = max(err, int((ker.int() - plain.int()).abs().max()))
-        if not (np.array_equal(ker.cpu().numpy(), plain.cpu().numpy())
-                and np.array_equal(ker.cpu().numpy(), host)):
+        got = ker.cpu().numpy()
+        err = max(err, int((ker.int() - plain.int()).abs().max()) if len(e) else 0)
+        if not (np.array_equal(got, plain.cpu().numpy()) and np.array_equal(got, host)):
             raise AssertionError(f"pack_select {name}: kernel, plain and host differ")
+        n_steps = int(stats[0])
+        if n_steps > PC.step_bound(a, b, c, d, e, cu, tl, host):
+            raise AssertionError(f"pack_select {name}: {n_steps} steps over the bound")
+        if a.shape[1] % 2 == 0:  # the selector's u64 rows
+            sel = PS.Selector(len(e), a.shape[1] // 2, dev)
+            via = sel(*(x.view(np.uint64) for x in (a, b, c, d)), e, cu, tl)
+            launches += 1
+            if not np.array_equal(via, host) or sel.stats[0] != n_steps:
+                raise AssertionError(f"pack_select {name}: the selector differs")
         checked[name] = int(host.sum())
+        steps[name] = n_steps
         if name == "deployment":
-            dev_in = args
-    if checked["all_pad_cost"] or checked["cu_limit_0"] or not checked["deployment"]:
+            dev_in, stats_dep = args, stats.cpu().tolist()
+    if (checked["all_pad_cost"] or checked["cu_limit_0"] or not checked["deployment"]
+            or checked["take_at_31"] != 2 or checked["take_at_32"] != 2):
         raise AssertionError(f"pack_select takes {checked}")
-    if PS.LAUNCHES - before != len(cases):
+    if PS.LAUNCHES - before != launches:
         raise AssertionError(f"pack_select launched {PS.LAUNCHES - before} times "
-                             f"for {len(cases)} cases")
+                             f"for {launches} kernel calls")
     K, W2 = dev_in[0].shape
-    ms = {"kernel": cuda_ms(lambda: PS.select_impl(*dev_in, CU_LIMIT, TXN_LIMIT), reps=50),
-          "plain": cuda_ms(lambda: PS.select_plain(*dev_in, CU_LIMIT, TXN_LIMIT),
-                           reps=3)}
+    takes = checked["deployment"]
+    ms = {"kernel_queued": cuda_ms_queued(
+              lambda: PS.select_impl(*dev_in, CU_LIMIT, TXN_LIMIT)),
+          "kernel_one_call": cuda_ms(
+              lambda: PS.select_impl(*dev_in, CU_LIMIT, TXN_LIMIT), reps=50),
+          "plain": cuda_ms(lambda: PS.select_plain(*dev_in, CU_LIMIT, TXN_LIMIT), reps=3)}
     bd = pack_bound(K, W2)
-    cycles = PS.chain_probe_cycles(1 << 20, dev)
     mhz = max_sm_clock_mhz()
-    bd["chain_cycles_per_step"] = cycles
-    bd["chain_floor_ms"] = K * cycles / (mhz * 1e3)
-    # the probe at the kernel's own length: its CUDA-event time and its
-    # clock64 cycles give the SM clock a short one-warp launch runs at
-    probe_cycles = []
-    ms["chain_probe_at_K"] = cuda_ms(lambda: probe_cycles.append(PS.chain_probe(K, dev)),
-                                     reps=50)
-    bd["clock_mhz_in_short_launch"] = (statistics.median(int(c) for c in probe_cycles)
-                                       / (ms["chain_probe_at_K"] * 1e3))
-    bd["bound_share"] = bd["bound_ms"] / ms["kernel"]
-    bd["chain_floor_share"] = bd["chain_floor_ms"] / ms["kernel"]
+    no_take, take_step = (PS.chain_probe_cycles(1 << 16, dev, take_steps=f)
+                          for f in (False, True))
+    n_steps = steps["deployment"]
+    chain_cycles = (n_steps - takes) * no_take + takes * take_step
+    bd.update({"chain_steps": n_steps, "chain_takes": takes,
+               "chain_cycles_per_step": {"no_take": no_take, "take": take_step},
+               "chain_floor_ms": chain_cycles / (mhz * 1e3),
+               "kernel_cycles": {"phase1_and_staging": stats_dep[1],
+                                 "chain": stats_dep[2], "total": stats_dep[3]},
+               # the kernel's clock64 cycles over its queued device time (the
+               # time holds the gap between two launches too)
+               "clock_mhz_in_queued_launch": stats_dep[3] / (ms["kernel_queued"] * 1e3)})
+    # the shares of the kernels line's ms (one call, as every row is timed)
+    # and of the device time queued behind a spin
+    for key, t in (("", ms["kernel_one_call"]), ("_queued", ms["kernel_queued"])):
+        bd["bound_share" + key] = bd["bound_ms"] / t
+        bd["chain_floor_share" + key] = bd["chain_floor_ms"] / t
+    # the pack tile's call: numpy in, one copy each way on its own stream
+    sel = PS.Selector(K, W_PACK, dev)
+    sel.ready()
+    args64 = (rw, wr, in_rw, in_w, costs, CU_LIMIT, TXN_LIMIT)
+    call_ms = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        sel(*args64)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+    # a select while a ~1 s spin is queued on the legacy default stream
+    # must return before the spin ends
+    want = sel(*args64)
+    sync()
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.perf_counter()
+    got = sel(*args64)
+    during_ms = (time.perf_counter() - t0) * 1e3
+    default_busy = not torch.cuda.default_stream(dev).query()
+    sync()
+    if not default_busy or not np.array_equal(got, want):
+        raise AssertionError("a select waited for the legacy default stream")
     emit({"phase": "pack_select", "K": K, "W2": W2, "cases_taken": checked,
-          "max_abs_err": err, "ms": ms, "bound": bd, "max_sm_clock_mhz": mhz,
-          "ns_per_candidate": ms["kernel"] * 1e6 / K, "card": nvidia_smi_line()})
+          "steps": steps, "max_abs_err": err, "ms": ms, "bound": bd,
+          "max_sm_clock_mhz": mhz, "ns_per_candidate": ms["kernel_one_call"] * 1e6 / K,
+          "selector_call_ms": {"median": statistics.median(call_ms),
+                               "max": max(call_ms)},
+          "select_during_default_stream_spin_ms": during_ms,
+          "card": nvidia_smi_line()})
     return {"name": "pack_select", "route": "cuda",
             "source": "firedancer_tpu_torch/csrc/pack_select.cu",
             "replaces": "firedancer_tpu/ops/pack_select.py:46", "launches": None,
-            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "max_abs_err": err, "ms": ms["kernel_one_call"], "plain_ms": ms["plain"],
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"], "library_ms": None,
-            "chain_floor_ms": bd["chain_floor_ms"]}
+            "chain_floor_ms": bd["chain_floor_ms"], "device_ms_queued": ms["kernel_queued"]}
 
 
 def host_greedy(rw, wr, in_rw, in_w, costs, cu_limit, txn_limit):
@@ -1391,29 +1491,41 @@ def phase_leader(dev, pool) -> int:
     """The leader pipeline on the card through entry.leader (synth ->
     verify -> dedup -> pack -> bank x 2 -> sink x 2) at the verify tile's
     deployment size, three runs (LEADER_RUNS); -> pack_select's launches
-    in the first run."""
+    in the first run.  The hooks on the pack tile's thread only keep
+    references and times (the engine's arrays are fresh for each call);
+    every check runs after the run."""
     from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.ballet import pack as P
     from firedancer_tpu_torch.ops import pack_select as PS
     from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
 
     t0 = time.time()
+    PC = pack_cases_module()
     orig = PS.select_noconflict
+    orig_sched, orig_spec = P.Pack.schedule_microblock, P.Pack._select_speculative
     runs, first_launches = [], None
     for select, idle_s in LEADER_RUNS:
-        calls = {"n": 0, "s": 0.0, "recorded": [], "ms": []}
+        calls = []  # (args, take, the chain's steps, host ms)
+        host_s = {"schedule": [], "speculative": []}
 
         def recording(*a, **kw):
             t = time.perf_counter()
             take = orig(*a, **kw)
-            dt = time.perf_counter() - t
-            calls["s"] += dt
-            calls["ms"].append(dt * 1e3)
-            calls["n"] += 1
-            if len(calls["recorded"]) < LEADER_RECORDED:
-                calls["recorded"].append(([np.array(x) for x in a[:5]], a[5], a[6], take))
+            calls.append((a, take, kw["selector"].stats[0],
+                          (time.perf_counter() - t) * 1e3))
             return take
 
+        def timed(fn, key):
+            def run(self, *a, **kw):
+                t = time.perf_counter()
+                out = fn(self, *a, **kw)
+                host_s[key].append(time.perf_counter() - t)
+                return out
+            return run
+
         PS.select_noconflict = recording
+        P.Pack.schedule_microblock = timed(orig_sched, "schedule")
+        P.Pack._select_speculative = timed(orig_spec, "speculative")
         try:
             sync()
             VC.LAUNCHES = 0
@@ -1424,23 +1536,32 @@ def phase_leader(dev, pool) -> int:
             vc_launches, ps_launches = VC.LAUNCHES, PS.LAUNCHES
         finally:
             PS.select_noconflict = orig
+            P.Pack.schedule_microblock = orig_sched
+            P.Pack._select_speculative = orig_spec
         check_leader(r, vc_launches)
-        if ps_launches != calls["n"] or (select and calls["n"] < 1):
+        if ps_launches != len(calls) or (select and not calls):
             raise AssertionError(f"pack_select launched {ps_launches} times for "
-                                 f"{calls['n']} select calls (select {select})")
-        # the recorded calls' inputs, again: kernel, plain on the card, host
-        for a, cu, tl, take in calls["recorded"]:
+                                 f"{len(calls)} select calls (select {select})")
+        over = sum(n > PC.step_bound(*a, take) for a, take, n, _ in calls)
+        if over:
+            raise AssertionError(f"{over} select calls took more chain steps than "
+                                 "ceil(live / 32) + takes")
+        # the first calls' inputs, again: kernel, plain on the card, host
+        for a, take, _, _ in calls[:LEADER_RECORDED]:
+            cu, tl = a[5], a[6]
             put = lambda x: torch_from(PS.split_u32(x), dev)  # noqa: E731
             args = [put(x) for x in a[:4]] + [torch_from(a[4].astype(np.int64), dev)]
             ker = PS.select_impl(*args, cu, tl).cpu().numpy()
             plain = PS.select_plain(*args, cu, tl).cpu().numpy()
             if not (np.array_equal(ker, take) and np.array_equal(plain, take)
-                    and np.array_equal(host_greedy(*a, cu, tl), take)):
+                    and np.array_equal(host_greedy(*a[:5], cu, tl), take)):
                 raise AssertionError("a recorded select differs from select_plain")
         if first_launches is None:
             first_launches = ps_launches
         c = r["counters"]
         mbs = c["pack"]["microblocks"]
+        ms = [m for _, _, _, m in calls]
+        steps = [n for _, _, n, _ in calls]
         runs.append({
             "pack_device_select": select, "idle_sleep_us": idle_s * 1e6,
             "txns_per_s": r["txns_per_s"], "executed_per_s": r["executed_per_s"],
@@ -1451,12 +1572,22 @@ def phase_leader(dev, pool) -> int:
             "microblocks_per_bank": [c[f"bank{i}"]["executed_microblocks"] for i in range(2)],
             **{k: v for k, v in r.items() if k.endswith("_us")},
             "verify_core_launches_after_warmup": vc_launches - 1,
-            "select_calls": calls["n"], "pack_select_launches": ps_launches,
-            "select_seconds": calls["s"], "select_share_of_wall": calls["s"] / r["seconds"],
-            "select_call_ms_median": (statistics.median(calls["ms"]) if calls["ms"]
-                                      else None),
-            "select_call_ms_max": max(calls["ms"], default=None),
-            "recorded_selects_checked": len(calls["recorded"])})
+            "select_calls": len(calls), "pack_select_launches": ps_launches,
+            "select_seconds": sum(ms) / 1e3,
+            "select_share_of_wall": sum(ms) / 1e3 / r["seconds"],
+            "select_call_ms_median": statistics.median(ms) if ms else None,
+            "select_call_ms_max": max(ms, default=None),
+            "chain_steps_per_call": ({"median": statistics.median(steps),
+                                      "max": max(steps)} if steps else None),
+            # the pack engine's scheduling on the pack tile's thread: every
+            # schedule call, and the device-select part (the ordered rows'
+            # gather and padding, the select call, the pick order)
+            "schedule_calls": len(host_s["schedule"]),
+            "schedule_seconds": sum(host_s["schedule"]),
+            "schedule_ms_median": (statistics.median(host_s["schedule"]) * 1e3
+                                   if host_s["schedule"] else None),
+            "speculative_seconds": sum(host_s["speculative"]),
+            "recorded_selects_checked": min(len(calls), LEADER_RECORDED)})
     emit({"phase": "leader", "pool": TILES_POOL, "frags": TILES_FRAGS, "lanes": B,
           "msg_width": W, "n_good": int(pool[2].sum()), "banks": 2, "checks": "exact",
           "runs": runs, "card": nvidia_smi_line(), "seconds": time.time() - t0})

@@ -5,8 +5,11 @@ A copy of firedancer_tpu/tiles/pack.py for the thread runtime: `mb_encode`,
 after-credit scheduling paths over the port's pack engine (ballet/pack.py).
 With `use_device_select` the engine's greedy prefilter runs on `device`
 (default: the CUDA card, through the hand-written kernel
-csrc/pack_select.cu; "cpu" runs the plain version); a CUDA select that
-fails to build or launch raises, it never falls back to the host order.
+csrc/pack_select.cu; "cpu" runs the plain version) through the tile's own
+`ops/pack_select.Selector`: pinned staging and device buffers sized for
+`scan_limit` candidates, one copy each way on a high-priority stream of
+its own; a CUDA select that fails to build, launch or copy raises, it
+never falls back to the host order.
 Not carried: the native stem's fast path (`native_handler`, the
 fdt_pack_sched after-credit hook) and elastic bank membership
 (`on_epoch`; the port's `Topology.declare_shards` raises).
@@ -152,22 +155,22 @@ class PackTile(Tile):
         self._block_deadline = np.zeros(1, np.int64)
         self._byte_limit = 0  # derived from the out-ring MTU at boot
         self._dev_select = None
-        self._select_device = None
+        self._selector = None
         if use_device_select:
             from ..ops import pack_select
-            from ..utils import devices
 
-            self._select_device = devices.resolve(device)
+            self._selector = pack_select.Selector(
+                self.scan_limit, self.engine.W, device
+            )
             self._dev_select = functools.partial(
-                pack_select.select_noconflict, device=self._select_device
+                pack_select.select_noconflict, selector=self._selector
             )
 
     def on_boot(self, ctx: MuxCtx) -> None:
-        if self._select_device is not None:
-            from ..ops import pack_select
-
-            # build the kernel at boot, not inside the first schedule call
-            pack_select.prepare(self._select_device)
+        if self._selector is not None:
+            # build the kernel, pin the buffers and make the stream at boot,
+            # not inside the first schedule call
+            self._selector.ready()
         if ctx.outs and ctx.outs[0].dcache is not None:
             # the encoded microblock must fit one frag on the bank ring
             # (frag sz is u16): headroom below both the dcache MTU and

@@ -29,6 +29,7 @@ from firedancer_tpu_torch.ops.ed25519 import msm as MSM
 from firedancer_tpu_torch.ops.ed25519 import verify as V
 from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
 from firedancer_tpu_torch.utils import kbuild
+from torch_pack_cases import EDGE_CASES, edge_case, seg_rows, step_bound, windowed_greedy
 
 pytestmark = pytest.mark.cuda
 
@@ -651,6 +652,80 @@ def test_pack_select_wrapper_rejects_bad_inputs(dev):
     assert PS.select_impl(rw[:0], wr[:0], in_rw, in_w, costs[:0], 10, 2).shape == (0,)
 
 
+@pytest.mark.parametrize("K,W2,case", [
+    (K, W2, case)
+    for K, W2 in [(1, 1), (97, 32), (100, 33), (1024, 32), (1024, 64), (70, 300),
+                  (64, 8192), (seg_rows(4) + 77, 4), (seg_rows(64) + 5, 64),
+                  (4096 + 77, 300)]
+    for case in EDGE_CASES
+    if not (case.startswith("take_at_") and K <= int(case[len("take_at_"):]))])
+def test_pack_select_kernel_chain_edges(dev, K, W2, case):
+    """The kernel on the chain's edges against select_plain (on the CPU; the
+    Python model alone past 2048 rows, where the plain loop is slow) and
+    the two-phase model's step count, within ceil(live / 32) + takes (one
+    more a segment after the first)."""
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    args = edge_case(case, K, W2, seed=K * 1000 + W2)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args[:5]]
+    stats = torch.full((4,), -1, dtype=torch.int64, device=dev)
+    before = PS.LAUNCHES
+    got = PS.select_impl(*(x.to(dev) for x in t), args[5], args[6], stats=stats)
+    got = got.cpu().numpy()
+    assert PS.LAUNCHES == before + 1
+    model, model_steps = windowed_greedy(*args)
+    np.testing.assert_array_equal(got, model)
+    if K <= 2048:
+        np.testing.assert_array_equal(got, PS.select_plain(*t, args[5], args[6]).numpy())
+    steps, phase1, chain, total = stats.cpu().tolist()
+    assert steps == model_steps <= step_bound(*args, got)
+    assert 0 < phase1 and 0 <= chain and phase1 + chain <= total
+
+
+def test_pack_selector_on_card_matches_plain(dev):
+    """The pack tile's selector (pinned block, one copy each way, its own
+    stream) against select_plain, over calls of several K on one selector;
+    one launch a call, and the step count the model gives."""
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    W = 16
+    sel = PS.Selector(1024, W)
+    assert sel.device.type == "cuda"
+    sel.ready()
+    before = PS.LAUNCHES
+    calls = 0
+    for k, case in [(1024, "random"), (1024, "take_at_32"), (1000, "in_use_most"),
+                    (1, "random"), (1024, "all_dead"), (1024, "budget_exact")]:
+        args = edge_case(case, k, 2 * W, seed=k + calls)
+        u64 = [np.ascontiguousarray(a).view(np.uint64) for a in args[:4]]
+        got = PS.select_noconflict(*u64, args[4], args[5], args[6], selector=sel)
+        calls += 1
+        t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args[:5]]
+        np.testing.assert_array_equal(got, PS.select_plain(*t, args[5], args[6]).numpy())
+        assert sel.stats[0] == windowed_greedy(*args)[1]
+    assert PS.LAUNCHES == before + calls
+    assert sel._stream.cuda_stream not in (0, torch.cuda.default_stream(dev).cuda_stream)
+
+
+def test_pack_selector_does_not_wait_for_the_default_stream(dev):
+    """A select issued while a long spin is queued on the legacy default
+    stream (where the verify worker launches) returns before the spin ends:
+    the selector's copies and kernel run on a stream of their own."""
+    from firedancer_tpu_torch.ops import pack_select as PS
+
+    args = edge_case("random", 1024, 32, seed=11)
+    u64 = [np.ascontiguousarray(a).view(np.uint64) for a in args[:4]]
+    sel = PS.Selector(1024, 16)
+    sel.ready()
+    want = sel(*u64, args[4], args[5], args[6])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000_000)  # ~2 s of spinning at the card's clock
+    got = sel(*u64, args[4], args[5], args[6])
+    assert not torch.cuda.default_stream(dev).query()
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_pack_select_noconflict_and_prefilter_on_card(dev):
     """select_noconflict with device=None runs the kernel; the step's
     pack_prefilter on CUDA tensors too."""
@@ -669,7 +744,8 @@ def test_pack_select_noconflict_and_prefilter_on_card(dev):
     take = PL.pack_prefilter(*t, torch.from_numpy(costs).to(dev), 1_500_000, 31)
     np.testing.assert_array_equal(take.cpu().numpy(), want)
     assert PS.LAUNCHES == before + 2
-    assert PS.chain_probe_cycles(4096, dev) > 0
+    assert PS.chain_probe_cycles(4096, dev, take_steps=False) > 0
+    assert PS.chain_probe_cycles(4096, dev, take_steps=True) > 0
 
 
 def test_leader_topology_on_card(dev):

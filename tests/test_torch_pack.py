@@ -30,6 +30,8 @@ from firedancer_tpu_torch.tiles import wire
 from firedancer_tpu_torch.tiles.synth import make_txn_pool
 from test_pack import _acct, _mk_txn
 from test_torch_verify_core import assert_no_sanitizer_report, host_library
+from torch_pack_cases import (EDGE_CASES, WINDOW, edge_case, seg_rows, step_bound,
+                              windowed_greedy)
 
 
 def _vote_txn(payer: bytes, vote_acct: bytes, data: bytes = b"\x02" * 24) -> bytes:
@@ -447,19 +449,26 @@ def _scan_case(K, W2, case, seed):
 
 
 @pytest.fixture(scope="module")
-def host_select(tmp_path_factory):
-    lib = host_library(tmp_path_factory, "pack_select")
-    fn = lib.fdt_pack_select_host
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 2
+def host_select_lib(tmp_path_factory):
+    return host_library(tmp_path_factory, "pack_select")
+
+
+@pytest.fixture(scope="module")
+def host_select(host_select_lib):
+    fn = host_select_lib.fdt_pack_select_host
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_int64] * 2
     fn.restype = None
 
     def run(rw, wr, in_rw, in_w, costs, cu_limit, txn_limit):
+        """-> (take mask, the chain's step count)."""
         K, W2 = rw.shape
         arrs = [np.ascontiguousarray(a) for a in (rw, wr, in_rw, in_w, costs)]
         take = np.full(K, 7, np.uint8)
-        fn(*(a.ctypes.data for a in arrs), take.ctypes.data, K, W2, cu_limit, txn_limit)
-        assert set(np.unique(take)) <= {0, 1}
-        return take.astype(bool)
+        stats = np.full(4, -1, np.int64)
+        fn(*(a.ctypes.data for a in arrs), take.ctypes.data, stats.ctypes.data, K, W2,
+           cu_limit, txn_limit)
+        assert set(np.unique(take)) <= {0, 1} and stats[1:].tolist() == [0, 0, 0]
+        return take.astype(bool), int(stats[0])
 
     return run
 
@@ -470,9 +479,10 @@ def host_select(tmp_path_factory):
 @pytest.mark.parametrize("K", [1, 33, 1024])
 def test_kernel_host_build_matches_plain(host_select, capfd, K, W2, case):
     args = _scan_case(K, W2, case, seed=K * 100 + W2)
-    got = host_select(*args)
+    got, steps = host_select(*args)
     assert_no_sanitizer_report(capfd)
     np.testing.assert_array_equal(got, greedy(*args))
+    assert steps == windowed_greedy(*args)[1] <= step_bound(*args, got)
     plain = PS.select_plain(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args[:5]),
                             args[5], args[6]).numpy()
     np.testing.assert_array_equal(got, plain)
@@ -515,3 +525,135 @@ def test_select_noconflict_matches_jax_at_deployment_shape():
     got = PS.select_noconflict(*args, device="cpu")
     np.testing.assert_array_equal(got, PSJ.select_noconflict(*args))
     assert got.sum() > 1 and not got[700:].any()
+
+
+# ---------------------------------------------------------------------------
+# the kernel's two phases: live rows, then a chain of takes over them
+
+
+@pytest.mark.parametrize("K,W2,case", [
+    (K, W2, case)
+    for K, W2 in [(1, 1), (31, 2), (97, 32), (100, 33), (1000, 2), (1024, 32), (70, 300)]
+    for case in EDGE_CASES
+    # a take at live row m needs more than m rows
+    if not (case.startswith("take_at_") and K <= int(case[len("take_at_"):]))])
+def test_kernel_host_build_chain_edges(host_select, capfd, K, W2, case):
+    """The host build against the Python greedy, select_plain, JAX's
+    select_noconflict (even W2: u64 rows) and the two-phase model, whose
+    step count it must equal, within ceil(live / 32) + takes."""
+    args = edge_case(case, K, W2, seed=K * 1000 + W2)
+    got, steps = host_select(*args)
+    assert_no_sanitizer_report(capfd)
+    want = greedy(*args)
+    np.testing.assert_array_equal(got, want)
+    model, model_steps = windowed_greedy(*args)
+    np.testing.assert_array_equal(model, want)
+    assert steps == model_steps <= step_bound(*args, got)
+    plain = PS.select_plain(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args[:5]),
+                            args[5], args[6]).numpy()
+    np.testing.assert_array_equal(plain, want)
+    if W2 % 2 == 0:
+        u64 = [np.ascontiguousarray(a).view(np.uint64) for a in args[:4]]
+        np.testing.assert_array_equal(PSJ.select_noconflict(*u64, *args[4:]), want)
+    if case.startswith("take_at_"):
+        m = int(case[len("take_at_"):])
+        assert list(np.flatnonzero(got)) == [0, m] and steps == 2 + (m > WINDOW)
+    if case == "budget_exact":
+        assert int(args[4][got].sum()) == args[5] and got[: min(5, K)].all()
+    if case == "zero_cost_cu_limit_0":
+        assert (args[4][got] == 0).all() and got.any() == (args[4] == 0).any()
+    if case == "all_dead":
+        assert not got.any() and steps == 0
+    if case == "txn_limit_1":
+        assert got.sum() <= 1
+
+
+@pytest.mark.parametrize("W2,K,case", [
+    (W2, k, case) for W2 in (4, 64, 300)
+    for k, case in [(seg_rows(W2) + 77, "random"), (2 * seg_rows(W2), "txn_limit_31"),
+                    (seg_rows(W2) + 1, "budget_exact")]])
+def test_kernel_host_build_segments(host_select, capfd, W2, K, case):
+    """K over one segment: the chain carries its state into the next
+    segment's phase 1 (the Python greedy and the model; select_plain too
+    where the loop is short enough on the CPU)."""
+    args = edge_case(case, K, W2, seed=K)
+    got, steps = host_select(*args)
+    assert_no_sanitizer_report(capfd)
+    np.testing.assert_array_equal(got, greedy(*args))
+    assert steps == windowed_greedy(*args)[1] <= step_bound(*args, got)
+    if K <= 2048:
+        plain = PS.select_plain(
+            *(torch.from_numpy(np.ascontiguousarray(a)) for a in args[:5]),
+            args[5], args[6]).numpy()
+        np.testing.assert_array_equal(got, plain)
+
+
+def test_seg_rows_matches_the_kernel(host_select_lib):
+    """ops/pack_select.py's seg_rows (the step bound's segments) is the
+    kernel's ps_seg_rows at every width it takes."""
+    fn = host_select_lib.fdt_pack_select_seg_rows
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    assert all(fn(W2) == PS.seg_rows(W2) for W2 in range(1, PS.MAX_W2 + 1))
+
+
+@pytest.mark.parametrize("K", [0, 1, 77, 1024])
+def test_selector_staging_layout_gives_plain_mask(K):
+    """The selector on the CPU: the u64 inputs written into its staging
+    block (`views`; a call on the card hands the same offsets to
+    fdt_pack_select_call, which copies into and launches on them) read
+    back, as the kernel reads them, as select_plain's int32 words, and
+    give select_plain's (and JAX's) mask; one selector serves calls of any
+    K up to its size."""
+    W = 16
+    sel = PS.Selector(1024, W, device="cpu")
+    for k in sorted({K, max(K - 5, 0)}):
+        rng = np.random.default_rng(k)
+        rw = rng.integers(0, 2**63, (k, W), dtype=np.uint64) & np.uint64(0x0101010101010101)
+        wr = rw & np.uint64(0x0001000100010001)
+        in_rw = np.zeros(W, np.uint64)
+        in_rw[3] = np.uint64(0x0100)
+        in_w = np.zeros(W, np.uint64)
+        costs = rng.integers(1_000, 200_000, k).astype(np.int64)
+        got = sel(rw, wr, in_rw, in_w, costs, 1_500_000, 31)
+        block = sel._host[: sel._offsets(k)[-1]]
+        want_block = np.concatenate([PS.split_u32(a).ravel().view(np.uint8)
+                                     for a in (rw, wr, in_rw, in_w)] + [costs.view(np.uint8)])
+        np.testing.assert_array_equal(block, want_block)
+        words = [torch.from_numpy(PS.split_u32(a)) for a in (rw, wr, in_rw, in_w)]
+        want = PS.select_plain(*words, torch.from_numpy(costs), 1_500_000, 31).numpy()
+        np.testing.assert_array_equal(got, want)
+        if k:
+            np.testing.assert_array_equal(
+                got, PSJ.select_noconflict(rw, wr, in_rw, in_w, costs, 1_500_000, 31))
+    assert sel.stats is None  # the plain version counts no steps
+
+
+def test_selector_rejects_bad_inputs():
+    sel = PS.Selector(8, 2, device="cpu")
+    z = np.zeros((8, 2), np.uint64)
+    with pytest.raises(ValueError, match="holds 8"):
+        sel(np.zeros((9, 2), np.uint64), np.zeros((9, 2), np.uint64), z[0], z[0],
+            np.zeros(9, np.int64), 10, 2)
+    with pytest.raises(ValueError, match="cand_w must have shape"):
+        sel(z, z[:1], z[0], z[0], np.zeros(8, np.int64), 10, 2)
+    with pytest.raises(ValueError, match="in_use_rw must have shape"):
+        sel(z, z, z[0, :1], z[0], np.zeros(8, np.int64), 10, 2)
+    with pytest.raises(ValueError, match="u64 words a row"):
+        PS.Selector(8, PS.MAX_W2, device="cpu")
+    with pytest.raises(ValueError, match="counts no steps"):
+        t = torch.zeros((1, 2), dtype=torch.int32)
+        PS.select_impl(t, t, t[0], t[0], torch.zeros(1, dtype=torch.int64), 10, 2,
+                       stats=torch.zeros(4, dtype=torch.int64))
+
+
+def test_pack_tile_owns_a_selector():
+    """A PackTile with the device select holds one Selector sized for its
+    scan and binds select_noconflict to it (so a hook on the module-level
+    function sees every call)."""
+    tile = TP.PackTile(2, use_device_select=True, device="cpu")
+    sel = tile._selector
+    assert isinstance(sel, PS.Selector) and sel.device == torch.device("cpu")
+    assert (sel.k_max, sel.w) == (tile.scan_limit, tile.engine.W)
+    assert tile._dev_select.func is PS.select_noconflict
+    assert tile._dev_select.keywords == {"selector": sel}
+    assert TP.PackTile(2)._selector is None
