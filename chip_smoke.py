@@ -13,10 +13,10 @@ full 2 x 2^28-bit filter pair resident on the card, K = 1024 pack
 candidates of 1024 account bits.  Phases, one JSON line each:
 
   device       card name, power limit, TF32 switches (both set off)
-  build        every kernel built from csrc/ by utils/kbuild.py, in parallel;
-               ptxas's registers, shared memory, stack frame and spills per
-               kernel; the tile runtime's host ring library built from
-               tango/native/ by utils/cbuild.py
+  build        every kernel and probe built from csrc/ by utils/kbuild.py, in
+               parallel; ptxas's registers, shared memory, stack frame and
+               spills per kernel; the tile runtime's host ring library built
+               from tango/native/ by utils/cbuild.py
   sass         the multiply instructions of one fe_mul and one fe_sq in
                their SASS (cuobjdump -sass of csrc/probe/fe_probe.cu), the
                card's measured issue rate of IMAD.WIDE and of IMAD, and the
@@ -69,18 +69,41 @@ candidates of 1024 account bits.  Phases, one JSON line each:
 
 and the rest of ops/, each at the size its users run:
 
+  sha256_sass  per SHA-256 kernel, the loop of one block's compression in
+               its SASS: instructions by opcode and the critical path (the
+               longest chain of dependent instructions, and per round);
+               csrc/probe/sha_probe.cu's clock64 cycles of one dependent
+               SHF.R.W, LOP3, IADD3 and IMAD and of the round's SHF.R.W ->
+               LOP3 -> IADD3 step, and a lone warp's cycles per instruction
+               over 8 independent chains; the opcodes of each probe loop
   sha256       the corpus's 4096 messages through sha256 (the
-               fdt_sha256_blocks kernel), every lane held against hashlib;
-               the 32- and 64-byte word forms on 4096 lanes; the kernel
-               against sha256_blocks_plain on all lanes
+               fdt_sha256_blocks kernel on the bytes: one launch), every
+               lane held against hashlib; the device kernels of one call
+               by torch.profiler (sha256_profile, the line before: exactly
+               one fdt_sha256_blocks a call); the 32- and 64-byte word forms
+               on 4096 lanes; the kernel against sha256_bytes_plain on all
+               lanes; the raw launch's ms (200 launches between two events)
+               beside one wrapper call and the entry point, and at the
+               widths 66 (a Merkle layer's node pairs) and 1231, whose rows
+               start at every offset of a 16-byte granule; the issue bound
+               (the operations of FIPS 180-4's compression on the ALU and
+               FMA pipes, not the kernel's instructions), the latency floor (the longest lane's 20 compressions x 64
+               rounds x the probe's SHF + LOP3 + IADD3 cycles at the
+               maximum SM clock) and the self-measured chain floor (one lane's
+               time a compression)
   poh          one slot built with hashlib on the host: 64 ticks of 12,500
                hashes in 1,024 entries (15 mixin entries and one tick entry
-               per tick), verified by verify_entries (the fdt_poh_chain
-               kernel), every end state held against the host chain; one
+               per tick), verified by verify_entries (one launch of the
+               fdt_poh_chain kernel on 32-byte states, its device kernels
+               profiled), every end state held against the host chain; one
                lane appended 12,500 times against hashlib (and timed: the
-               cycles of one dependent compression, the chain floor); the
-               kernel against poh_chain_plain on all lanes at max_hashcnt
-               64; the SASS instructions of one compression of each kernel
+               self-measured chain floor); the kernel against
+               poh_chain_bytes_plain on all lanes at max_hashcnt 64; the raw
+               launch's ms (10 launches) beside one wrapper call and
+               verify_entries; the issue bound and the latency floor; the
+               probe's cycles of one dependent compression, the compression
+               before its redesign and sha256.cuh's, in turns (old, new,
+               new, old), every lane against hashlib
   reedsol      128 full 32:32 FEC sets side by side (4,096 data shreds of
                the 1,019-byte coded width) encoded and held against
                _encode_host; recovered from three seeded 32-row losses (one
@@ -184,6 +207,8 @@ INT32_MAD_PER_S = 67e12 / 2 / 2
 # 6.5e12 IMAD.WIDE/s against 15.7e12 IMAD/s on an H100 at 700 W.  The
 # bounds count limb products at this rate.
 WIDE_MAD_PER_S = INT32_MAD_PER_S / 2
+#: the probes under csrc/probe/, built beside the kernels
+PROBES = ["probe/fe_probe", "probe/sha_probe"]
 #: csrc/msm.cu's kernel, as cuobjdump names it
 MSM_KERNEL_SYMBOL = "_Z18msm_buckets_kernelPKiS0_S0_S0_Piii"
 # 32-bit integer add, logic and shift instructions issue at 64 per clock per
@@ -520,6 +545,78 @@ def loop_counts(sass: str, function: str) -> dict:
     return _imad_counts([op for addr, op, _ in ins if lo <= addr <= hi])
 
 
+def _loops(ins: list) -> list:
+    """(first, last) addresses of every loop of one function's SASS: a
+    backward branch's target and the branch, longest first."""
+    out = []
+    for addr, op, rest in ins:
+        m = re.match(r"\s*0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if m and int(m.group(1), 16) < addr:
+            out.append((int(m.group(1), 16), addr))
+    return sorted(out, key=lambda lh: lh[0] - lh[1])
+
+
+def _dest_regs(op: str, rest: str) -> list:
+    """Registers an instruction writes: its first operand where that is a
+    register (two for a .64 or WIDE result, four for .128)."""
+    m = re.match(r"\s*R(\d+)\b", rest)
+    if not m:
+        return []
+    n = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+    return [str(int(m.group(1)) + i) for i in range(n)]
+
+
+def _critical_path(ins: list) -> int:
+    """The longest chain of dependent instructions through `ins` (straight
+    line, in order; registers live on entry count as ready)."""
+    depth, best = {}, 0
+    for _, op, rest in ins:
+        dst = _dest_regs(op, rest)
+        srcs = re.findall(r"\bR(\d+)\b", rest)[len(dst[:1]):]
+        d = 1 + max((depth.get(r, 0) for r in srcs), default=0)
+        for r in dst:
+            depth[r] = d
+        best = max(best, d)
+    return best
+
+
+def loop_profile(sass: str, function: str, rounds: int = 64) -> dict:
+    """The loops of a SHA-256 kernel's SASS, each one pass a block: per
+    loop its instructions by opcode, its critical path (the longest chain
+    of dependent instructions in one pass) and its warp (the schedule warp
+    stores a block's 48 or 64 words of W + K to shared memory, 16 or more
+    STS, the round warp at most its 8 state words); in all, the
+    instructions of one block's compression (a pass of each warp's loop,
+    the larger where ptxas compiled a warp's loop twice) and the longest
+    critical path, also per round.  A diagnostic: the static count holds
+    code a pass may skip (a lane's padding), and no bound uses it."""
+    ins = _instructions(sass, function)
+    loops = []
+    for lo, hi in sorted(_loops(ins)):
+        body = [i for i in ins if lo <= i[0] <= hi]
+        ops = [op.split(".")[0] for _, op, _ in body]
+        loops.append({"warp": "schedule" if ops.count("STS") >= 16 else "round",
+                      "instructions": len(body),
+                      "by_opcode": {o: ops.count(o) for o in sorted(set(ops))},
+                      "critical_path": _critical_path(body)})
+    per_warp = {}
+    for lp in loops:
+        per_warp[lp["warp"]] = max(per_warp.get(lp["warp"], 0), lp["instructions"])
+    path = max(lp["critical_path"] for lp in loops)
+    return {"instructions": sum(per_warp.values()), "instructions_by_warp": per_warp,
+            "loops": loops, "critical_path": path, "critical_path_per_round": path / rounds}
+
+
+def all_loop_counts(sass: str, function: str) -> list:
+    """Opcode counts of every loop of one function, in address order."""
+    ins = _instructions(sass, function)
+    out = []
+    for lo, hi in sorted(_loops(ins)):
+        ops = [op.split(".")[0] for a, op, _ in ins if lo <= a <= hi]
+        out.append({o: ops.count(o) for o in sorted(set(ops))})
+    return out
+
+
 def probe_rates(dev) -> dict:
     """Multiply-adds per second of the whole card, IMAD.WIDE and IMAD, from
     csrc/probe/fe_probe.cu's rate kernel (132 x 16 blocks of 256 threads, 8
@@ -802,23 +899,108 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 BLAKE3_EMPTY = "af1349b9f5f9a1a6a0404dea36dcc9499bcb25c9adc112b7cc9a93cae41f3262"
 
 
-def words_max_err(a, b) -> int:
-    """Largest |difference| of two word tensors."""
-    return int((a.cpu() - b.cpu()).abs().max()) if a.numel() else 0
+def bytes_max_err(a, b) -> int:
+    """Largest |difference| of two uint8 tensors, byte by byte."""
+    return int((a.cpu().int() - b.cpu().int()).abs().max()) if a.numel() else 0
 
 
-def sha_bound(compressions: int, instructions: int, nbytes_: int) -> dict:
-    """The least time of a SHA-256 kernel's work: the compressions these
-    inputs need times the SASS instructions of one compression, at
-    INT32_OPS_PER_S, against its bytes at the memory rate."""
-    ops = compressions * instructions
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
+def _sum_terms(ops: dict, n: int, const: bool) -> bool:
+    """Adds that sum n variable terms and, where `const`, one constant (an
+    immediate): three-input adds while three terms are left, then one of
+    two inputs.  -> whether the sum is variable."""
+    terms = n + const
+    while n and terms > 1:
+        key = "add3" if terms >= 3 else "add2"
+        ops[key] += 1
+        terms -= 2 if key == "add3" else 1
+    return n > 0
+
+
+def sha_compression_ops(const_words=(), const_state: bool = False) -> dict:
+    """The operations of one SHA-256 compression, counted from FIPS 180-4's
+    functions and not from a kernel's code.  Per round: Σ1(e) and Σ0(a)
+    (three rotates and one three-way xor each), Ch and Maj (one
+    three-input logic operation each), and the adds p = h + W + K,
+    T1 = p + Σ1 + Ch, e' = T1 + d, a' = T1 + Σ0 + Maj; per schedule step
+    σ0 and σ1 (two rotates, a shift and one xor each) and the sum of four
+    terms; then the eight adds of the state.  An operation whose inputs are
+    all constant folds away: `const_words` are message words known before
+    the run (the padding half of a PoH append), `const_state` a compression
+    from the initial state.  -> {"alu": rotates, shifts and logic, which
+    only the ALU pipe runs; "add2", "add3": adds of two and of three
+    inputs, which either pipe runs (IADD3; one or two IMADs)}."""
+    ops = {"alu": 0, "add2": 0, "add3": 0}
+    w = [i not in const_words for i in range(16)]
+    for t in range(16, 64):
+        w15, w2 = w[t - 15], w[t - 2]
+        ops["alu"] += 4 * w15 + 4 * w2
+        terms = [w[t - 16], w15, w[t - 7], w2]
+        w.append(_sum_terms(ops, sum(terms), not all(terms)))
+    a, b, c, d, e, f, g, h = [not const_state] * 8
+    for t in range(64):
+        ch, mj = e or f or g, a or b or c
+        ops["alu"] += 4 * e + ch + 4 * a + mj
+        p = _sum_terms(ops, h + w[t], True)
+        t1 = _sum_terms(ops, p + e + ch, not (p and e and ch))
+        e2 = _sum_terms(ops, t1 + d, not (t1 and d))
+        a2 = _sum_terms(ops, t1 + a + mj, not (t1 and a and mj))
+        a, b, c, d, e, f, g, h = a2, a, b, c, e2, e, f, g
+    ops["add2"] += 8
+    return ops
+
+
+def sha_ops(*parts) -> dict:
+    """Sums of (count, ops) parts: -> ops of the whole run."""
+    out = {"alu": 0, "add2": 0, "add3": 0}
+    for count, ops in parts:
+        for k in out:
+            out[k] += count * ops.get(k, 0)
+    return out
+
+
+def pipe_split(ops: dict) -> tuple:
+    """The least issue of `ops` on one SM sub-partition's two integer pipes,
+    each at INT32_OPS_PER_S over the card: the ALU pipe runs every
+    operation, the FMA pipe only adds (IMAD: one for a two-input add, two
+    for three).  Adds move to the FMA pipe, two-input ones first, until the
+    pipes balance.  -> (ALU pipe ops, FMA pipe ops); the bound is the
+    larger."""
+    alu, d2, d3 = ops["alu"], ops["add2"], ops["add3"]
+    x2 = min(d2, (alu + d2 + d3) / 2)
+    if x2 < d2:
+        return alu + d2 + d3 - x2, x2
+    x3 = min(d3, max(0.0, (alu + d3 - d2) / 3))
+    return alu + d3 - x3, d2 + 2 * x3
+
+
+def sha_bound(ops: dict, nbytes_: int) -> dict:
+    """The least time of a SHA-256 kernel's work: the operations these
+    inputs need (sha_ops of sha_compression_ops, and the byte swaps) on the
+    two integer pipes as pipe_split balances them (the issue bound), against
+    its bytes at the memory rate."""
+    alu_pipe, fma_pipe = pipe_split(ops)
+    ops_ms = max(alu_pipe, fma_pipe) / INT32_OPS_PER_S * 1e3
     bytes_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
-    return {"compressions": compressions, "instructions_per_compression": instructions,
-            "int32_ops": ops, "int32_ops_per_s": INT32_OPS_PER_S, "ops_ms": ops_ms,
+    return {"ops": ops, "alu_pipe_ops": alu_pipe, "fma_pipe_ops": fma_pipe,
+            "pipe_ops_per_s": INT32_OPS_PER_S, "ops_ms": ops_ms,
             "bytes": nbytes_, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def latency_floor(bd: dict, chain: int, probe: dict, mhz: float, ms: float) -> None:
+    """Into a sha_bound: the latency floor of a chain of `chain` dependent
+    compressions (64 rounds, each at least one SHF.R.W -> LOP3 -> IADD3
+    deep, at the probe's latencies and the card's maximum SM clock), and
+    the kernel's share of the larger of it and the issue bound."""
+    per_round = probe["round_depth_cycles"]
+    bd["latency_floor_ms"] = chain * 64 * per_round / (mhz * 1e3)
+    bd["latency_floor_chain"] = chain
+    bd["latency_floor_cycles_per_round"] = per_round
+    bd["floor_ms"] = max(bd["bound_ms"], bd["latency_floor_ms"])
+    bd["floor_by"] = ("latency" if bd["latency_floor_ms"] >= bd["bound_ms"]
+                      else bd["bound_by"])
+    bd["floor_share"] = bd["floor_ms"] / ms
 
 
 def max_sm_clock_mhz() -> float:
@@ -826,6 +1008,167 @@ def max_sm_clock_mhz() -> float:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout
     return float(out.strip().splitlines()[0])
+
+
+#: csrc/probe/sha_probe.cu's chain kinds: latency of one dependent
+#: instruction, then one lone warp's cycles per instruction over 8 chains
+SHA_LATENCY_KINDS = ("shf", "lop3", "iadd3", "imad", "round")
+SHA_ISSUE_KINDS = ("shf", "lop3", "iadd3", "imad", "iadd3_imad")
+SHA_PROBE_STEPS = 4096
+
+
+def _sha_probe_fn(name: str, argtypes: list):
+    import ctypes
+
+    from firedancer_tpu_torch.utils import kbuild
+
+    fn = getattr(kbuild.load("probe/sha_probe"), name)
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def sha_op_probe(dev) -> dict:
+    """Cycles of the round's instructions on one warp (clock64, chains of
+    SHA_PROBE_STEPS): each kind's dependent latency, the round's SHF.R.W ->
+    LOP3 -> IADD3 step, and a lone warp's cycles per instruction over 8
+    independent chains.  round_depth_cycles, the latency floor's cycles a
+    round, is the sum of the three latencies."""
+    import ctypes
+
+    import torch
+
+    fn = _sha_probe_fn("fdt_probe_sha_op_launch",
+                       [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    rng = np.random.default_rng(2034)
+    inp = rng.integers(0, 1 << 32, 49, dtype=np.uint64).astype(np.uint32)
+    inp[16] = 7
+    src = torch.from_numpy(inp.view(np.int32)).to(dev)
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+    cyc = torch.empty(32, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = SHA_PROBE_STEPS
+
+    def run(kind, threads=32):
+        cyc.zero_()
+        for _ in range(2):  # warm, then measured
+            if fn(kind, src.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, threads, stream):
+                raise RuntimeError("sha probe launch failed")
+        sync()
+        return int(cyc.max())
+
+    lat = {k: run(i) / n for i, k in enumerate(SHA_LATENCY_KINDS)}
+    issue = {k: run(5 + i) / (8 * n) for i, k in enumerate(SHA_ISSUE_KINDS)}
+    half = {k: run(5 + i, 16) / (8 * n) for i, k in enumerate(SHA_ISSUE_KINDS)}
+    return {"latency_cycles": lat, "issue_cycles_per_instruction": issue,
+            "issue_cycles_per_instruction_16_threads": half,
+            "round_depth_cycles": lat["shf"] + lat["lop3"] + lat["iadd3"],
+            "steps": n}
+
+
+#: csrc/probe/sha_probe.cu's PoH variants, by `which`
+POH_PROBE_VARIANTS = ("old", "one_warp", "one_warp_fma_adds", "new", "round_warp_alone")
+
+
+def poh_probe(dev, n: int, order=(0, 3, 1, 2, 4, 4, 2, 1, 3, 0)) -> dict:
+    """Cycles of one dependent compression of 32 lanes (n PoH appends each,
+    clock64), csrc/probe/sha_probe.cu's variants in turns: the compression
+    before its redesign ("old"), sha256.cuh's on one warp, the same with
+    every add on IMAD, fdt_poh_chain's two warps ("new"), and its round
+    warp alone without the hand-over (what the barriers cost); every
+    lane's end state but the last variant's held against hashlib."""
+    import ctypes
+
+    import torch
+
+    fn = _sha_probe_fn("fdt_probe_poh_launch", [ctypes.c_int, ctypes.c_void_p])
+    rng = np.random.default_rng(2035)
+    starts = rng.integers(0, 256, (32, 32), np.uint8)
+    want = []
+    for i in range(32):
+        st = starts[i].tobytes()
+        for _ in range(n):
+            st = hashlib.sha256(st).digest()
+        want.append(st)
+    words = starts.reshape(32, 8, 4)[..., ::-1].copy().view(np.uint32).reshape(32, 8)
+    src = torch.from_numpy(words.view(np.int32)).to(dev)
+    out = torch.empty((32, 8), dtype=torch.int32, device=dev)
+    cyc = torch.empty(32, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    runs = []
+    for which in order:
+        if fn(which, src.data_ptr(), out.data_ptr(), cyc.data_ptr(), n, stream):
+            raise RuntimeError("poh probe launch failed")
+        sync()
+        got = out.cpu().numpy().view(np.uint32).reshape(32, 8, 1).view(np.uint8)
+        got = got.reshape(32, 8, 4)[..., ::-1].reshape(32, 32)
+        if (POH_PROBE_VARIANTS[which] != "round_warp_alone"
+                and [got[i].tobytes() for i in range(32)] != want):
+            raise AssertionError(f"poh probe {POH_PROBE_VARIANTS[which]} differs from hashlib")
+        runs.append(int(cyc.max()) / n)
+    out_ = {"order": [POH_PROBE_VARIANTS[w] for w in order], "cycles_per_compression": runs}
+    for w in sorted(set(order)):
+        out_[POH_PROBE_VARIANTS[w]] = statistics.median(
+            [r for v, r in zip(order, runs) if v == w])
+    return {**out_, "appends": n, "matches_hashlib": True}
+
+
+def launch_ms(call, n: int) -> float:
+    """Device ms of one raw launch: n launches of call(stream) (a C launch
+    on the current stream, no wrapper) between two CUDA events, after one
+    warm-up, divided by n."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    if call(stream):
+        raise RuntimeError("launch failed")
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        call(stream)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def profiled_kernels(fn, calls: int = 10, tries: int = 8) -> dict:
+    """The device kernels of `calls` fn() calls by name, from torch.profiler
+    (copies and fills counted apart, as "_copies"), with "_calls" and the
+    profiles it took ("_tries"); raises where `tries` profiles in a row
+    showed no device event.  The profiler may miss an event of a short
+    kernel, never add one."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for tried in range(1, tries + 1):
+        out = {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = "_copies" if e.name.startswith(("Memcpy", "Memset")) else e.name
+            out[name] = out.get(name, 0) + 1
+        if out:
+            return {**out, "_calls": calls, "_tries": tried}
+    raise AssertionError(f"torch.profiler saw no device event in {tries} profiles")
+
+
+def check_one_kernel(kernels: dict, prefix: str, what: str) -> None:
+    """The profiled calls ran one kernel, named `prefix`..., once a call
+    (the profiler may have missed one of its events) and no other."""
+    names = {k: v for k, v in kernels.items() if not k.startswith("_")}
+    calls = kernels["_calls"]
+    if (len(names) != 1 or not next(iter(names)).startswith(prefix)
+            or not calls - 1 <= next(iter(names.values())) <= calls):
+        raise AssertionError(f"{what} ran {names} in {calls} calls, "
+                             f"not one {prefix} launch a call")
 
 
 def poh_slot(seed: int):
@@ -857,10 +1200,23 @@ def poh_slot(seed: int):
     return starts, hashcnts, mixins, has, ends
 
 
-def phase_poh(dev, put, per_compression: int) -> dict:
-    """The PoH path (verify_entries over one slot, launch count from 0), the
-    kernel against its plain version, times and the chain floor; -> the
-    kernel's row of the kernels line."""
+#: the operations of the compressions of the two kernels' lanes
+#: (sha_compression_ops): a PoH append (the state's padding half constant,
+#: from the initial state), a first message block, a later one, the mixin's
+#: padding block (its whole message constant)
+SHA_FIRST_BLOCK_OPS = sha_compression_ops(const_state=True)
+SHA_BLOCK_OPS = sha_compression_ops()
+POH_APPEND_OPS = sha_compression_ops(range(8, 16), const_state=True)
+POH_PAD_BLOCK_OPS = sha_compression_ops(range(16))
+#: byte swaps (PRMT, ALU pipe) of 32 bytes and of a 64-byte block
+SWAP32_OPS, SWAP64_OPS = {"alu": 8}, {"alu": 16}
+
+
+def phase_poh(dev, put, probe: dict) -> dict:
+    """The PoH path (verify_entries over one slot, launch count from 0, its
+    device kernels profiled), the kernel against its plain version, times
+    (the raw launch and the entry point), the floors and the old and new
+    compressions' cycles; -> the kernel's row of the kernels line."""
     import torch
 
     from firedancer_tpu_torch.ops import poh as POH
@@ -876,57 +1232,73 @@ def phase_poh(dev, put, per_compression: int) -> dict:
     got = got.cpu().numpy()
     if not np.array_equal(got, ends) or not np.array_equal(got[:-1], starts[1:]):
         raise AssertionError("verify_entries differs from the host chain")
-    if launches < 1:
-        raise AssertionError("verify_entries did not launch fdt_poh_chain")
+    if launches != 1:
+        raise AssertionError(f"verify_entries launched fdt_poh_chain {launches} times")
+    kernels = profiled_kernels(lambda: POH.verify_entries(
+        starts, hcs, mixins, has, HASHES_PER_TICK, device=dev))
+    check_one_kernel(kernels, "fdt_poh_chain", "verify_entries")
 
     # one lane appended HASHES_PER_TICK times: hashlib, and the time of one
-    # dependent compression
+    # dependent compression (the self-measured chain floor)
     ref = starts[0].tobytes()
     for _ in range(HASHES_PER_TICK):
         ref = hashlib.sha256(ref).digest()
     if POH.append_n(starts[:1], HASHES_PER_TICK, device=dev).cpu().numpy()[0].tobytes() != ref:
         raise AssertionError("append_n differs from hashlib")
-    w, m = SHA.words_from_bytes(put(starts)), SHA.words_from_bytes(put(mixins))
-    has_d, hc_d = put(has), put(hcs)
-    one = (w[:1], torch.full((1,), HASHES_PER_TICK, dtype=torch.int32, device=dev),
-           m[:1], torch.zeros(1, dtype=torch.bool, device=dev))
-    one_ms = cuda_ms(lambda: SHA.poh_chain(*one), reps=5)
+    st_d, mx_d, has_d, hc_d = put(starts), put(mixins), put(has), put(hcs)
+    one = (st_d[:1], torch.full((1,), HASHES_PER_TICK, dtype=torch.int32, device=dev),
+           mx_d[:1], torch.zeros(1, dtype=torch.bool, device=dev))
+    one_ms = cuda_ms(lambda: SHA.poh_chain_bytes(*one), reps=5)
     ns_per = one_ms * 1e6 / HASHES_PER_TICK
 
     # the kernel against its plain version on every lane at POH_PLAIN_MAX
     small = put(hcs % (POH_PLAIN_MAX + 1))
     n_small = torch.where(has_d, small - 1, small)
-    ker = SHA.poh_chain(w, n_small, m, has_d)
-    plain = SHA.poh_chain_plain(w, n_small, m, has_d)
+    ker = SHA.poh_chain_bytes(st_d, n_small, mx_d, has_d)
+    plain = SHA.poh_chain_bytes_plain(st_d, n_small, mx_d, has_d)
     sync()
-    err = words_max_err(ker, plain)
+    err = bytes_max_err(ker, plain)
     if err != 0:
-        raise AssertionError("poh_chain disagrees with poh_chain_plain")
+        raise AssertionError("poh_chain_bytes disagrees with poh_chain_bytes_plain")
 
     n_full = torch.where(has_d, hc_d - 1, hc_d)
+    args = SHA.poh_args(st_d, n_full, mx_d, has_d)
     ms = {
-        "poh_chain": cuda_ms(lambda: SHA.poh_chain(w, n_full, m, has_d), reps=5),
+        "poh_chain": launch_ms(lambda stream: SHA.poh_call(*args, stream), 10),
+        "poh_chain_one_call": cuda_ms(lambda: SHA.poh_chain_bytes(st_d, n_full, mx_d, has_d),
+                                      reps=5),
         "verify_entries": cuda_ms(lambda: POH.verify_entries(
             starts, hcs, mixins, has, HASHES_PER_TICK, device=dev), reps=3),
-        "poh_chain_at_plain_size": cuda_ms(lambda: SHA.poh_chain(w, n_small, m, has_d), reps=5),
+        "poh_chain_at_plain_size": cuda_ms(
+            lambda: SHA.poh_chain_bytes(st_d, n_small, mx_d, has_d), reps=5),
         "poh_chain_plain_at_plain_size": cuda_ms(
-            lambda: SHA.poh_chain_plain(w, n_small, m, has_d), reps=1, warmup=0),
+            lambda: SHA.poh_chain_bytes_plain(st_d, n_small, mx_d, has_d), reps=1, warmup=0),
         "one_lane_chain": one_ms,
     }
     lane_comps = n_full.clamp(min=0) + 2 * has_d.to(torch.int32)
-    bd = sha_bound(int(lane_comps.sum()), per_compression, len(hcs) * (32 + 4 + 32 + 1 + 32))
+    chain = int(lane_comps.max())
+    mixes = int(has_d.sum())
+    ops = sha_ops((int(n_full.clamp(min=0).sum()), POH_APPEND_OPS),
+                  (mixes, SHA_FIRST_BLOCK_OPS), (mixes, POH_PAD_BLOCK_OPS),
+                  (2 * len(hcs) + mixes, SWAP32_OPS))
+    bd = sha_bound(ops, len(hcs) * (32 + 4 + 32 + 1 + 32))
+    bd["compressions"] = int(lane_comps.sum())
     mhz = max_sm_clock_mhz()
-    bd["chain_floor_ms"] = int(lane_comps.max()) * ns_per * 1e-6
+    bd["chain_floor_ms"] = chain * ns_per * 1e-6
     bd["bound_share"] = bd["bound_ms"] / ms["poh_chain"]
     bd["chain_floor_share"] = bd["chain_floor_ms"] / ms["poh_chain"]
+    latency_floor(bd, chain, probe, mhz, ms["poh_chain"])
+    turns = poh_probe(dev, SHA_PROBE_STEPS)
     emit({"phase": "poh", "entries": len(hcs), "hashes": int(hcs.sum()),
           "max_hashcnt": HASHES_PER_TICK, "host_chain_seconds": host_s,
           "end_states_match_host_chain": True, "linked": True,
           "append_n_matches_hashlib": True, "poh_chain_launches": launches,
+          "verify_entries_kernels_profiled": kernels,
           "kernel_vs_plain": {"max_hashcnt": POH_PLAIN_MAX, "lanes": len(hcs),
                               "max_abs_err": err},
           "ms": ms, "ns_per_dependent_compression": ns_per,
           "cycles_per_dependent_compression_at_max_sm_clock": ns_per * mhz / 1e3,
+          "probe_cycles_per_dependent_compression": turns,
           "max_sm_clock_mhz": mhz, "hashes_per_s": int(hcs.sum()) / ms["poh_chain"] * 1e3,
           "bound": bd, "card": nvidia_smi_line()})
     return {"name": "poh_chain", "route": "cuda",
@@ -936,14 +1308,20 @@ def phase_poh(dev, put, per_compression: int) -> dict:
             "plain_ms": ms["poh_chain_plain_at_plain_size"],
             "plain_at": f"max_hashcnt {POH_PLAIN_MAX}, all lanes",
             "ms_at_plain_size": ms["poh_chain_at_plain_size"],
+            "entry_ms": ms["verify_entries"],
             "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"], "library_ms": None,
+            "latency_floor_ms": bd["latency_floor_ms"],
             "chain_floor_ms": bd["chain_floor_ms"], "ns_per_compression": ns_per}
 
 
-def phase_sha256(dev, put, bt, per_compression: int, ns_per: float) -> dict:
-    """sha256 over the corpus's messages (launch count from 0), the word
-    forms, the kernel against its plain version and times; -> the kernel's
-    row of the kernels line."""
+def phase_sha256(dev, put, bt, probe: dict, ns_per: float) -> dict:
+    """sha256 over the corpus's messages (launch count from 0, its device
+    kernels profiled), the word forms, the kernel against its plain version,
+    times (the raw launch and the entry point) and the raw launch at two
+    widths whose rows start at every offset in a 16-byte granule; -> the
+    kernel's row of the kernels line."""
+    import torch
+
     from firedancer_tpu_torch.ops import sha256 as SHA
 
     msgs, lens = bt["msgs"], bt["lens"]
@@ -956,8 +1334,13 @@ def phase_sha256(dev, put, bt, per_compression: int, ns_per: float) -> dict:
     if [got[i].tobytes() for i in range(n)] != [
             hashlib.sha256(msgs[i, : lens[i]].tobytes()).digest() for i in range(n)]:
         raise AssertionError("sha256 differs from hashlib")
-    if launches < 1:
-        raise AssertionError("sha256 did not launch fdt_sha256_blocks")
+    if launches != 1:
+        raise AssertionError(f"sha256 launched fdt_sha256_blocks {launches} times")
+    msgs_d, lens_d = put(msgs), put(lens.astype(np.int64))
+    kernels = profiled_kernels(lambda: SHA.sha256(msgs_d, lens_d, device=dev))
+    check_one_kernel(kernels, "fdt_sha256_blocks", "sha256")
+    emit({"phase": "sha256_profile", "lanes": n, "width": msgs.shape[1],
+          "sha256_kernels_profiled": kernels})
     rng = np.random.default_rng(2028)
     for width, fn in ((32, SHA.sha256_words32), (64, SHA.sha256_words64)):
         b = rng.integers(0, 256, (n, width), np.uint8)
@@ -965,34 +1348,62 @@ def phase_sha256(dev, put, bt, per_compression: int, ns_per: float) -> dict:
         if any(out[i].tobytes() != hashlib.sha256(b[i].tobytes()).digest() for i in range(n)):
             raise AssertionError(f"sha256_words{width} differs from hashlib")
 
-    msgs_d, lens_d = put(msgs), put(lens.astype(np.int64))
-    words, nblocks = SHA.padded_words(msgs_d, lens_d)
-    ker = SHA.sha256_blocks(words, nblocks)
-    plain = SHA.sha256_blocks_plain(words, nblocks)
+    ker = SHA.sha256_bytes(msgs_d, lens_d)
+    plain = SHA.sha256_bytes_plain(msgs_d, lens_d)
     sync()
-    err = words_max_err(ker, plain)
+    err = bytes_max_err(ker, plain)
     if err != 0:
-        raise AssertionError("sha256_blocks disagrees with sha256_blocks_plain")
+        raise AssertionError("sha256_bytes disagrees with sha256_bytes_plain")
+    args = SHA.sha256_args(msgs_d, lens_d)
     ms = {
-        "sha256_blocks": cuda_ms(lambda: SHA.sha256_blocks(words, nblocks), reps=20),
-        "sha256_blocks_plain": cuda_ms(
-            lambda: SHA.sha256_blocks_plain(words, nblocks), reps=1, warmup=0),
-        "sha256": cuda_ms(lambda: SHA.sha256(msgs_d, lens_d, device=dev), reps=5),
+        "sha256_blocks": launch_ms(lambda stream: SHA.sha256_call(*args, stream), 200),
+        "sha256_blocks_one_call": cuda_ms(lambda: SHA.sha256_bytes(msgs_d, lens_d), reps=20),
+        "sha256_bytes_plain": cuda_ms(
+            lambda: SHA.sha256_bytes_plain(msgs_d, lens_d), reps=1, warmup=0),
+        "sha256": cuda_ms(lambda: SHA.sha256(msgs_d, lens_d, device=dev), reps=20),
+        "sha256_from_numpy": cuda_ms(lambda: SHA.sha256(msgs, lens, device=dev), reps=5),
     }
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        SHA.sha256(msgs_d, lens_d, device=dev)
+    sync()
+    ms["sha256_back_to_back"] = (time.perf_counter() - t0) * 1e3 / 200  # host clock
+    # a Merkle layer's rows (ballet/bmtree: a 1-byte prefix and two 32-byte
+    # nodes, in a 66-byte row) and an odd message width, every lane against
+    # hashlib
+    odd = {}
+    for width, wl in ((66, 65 + np.arange(n) % 2), (1231, np.minimum(lens, 1231))):
+        wm = np.ascontiguousarray(msgs[:, :width])
+        wm_d, wl_d = put(wm), put(wl.astype(np.int64))
+        out = SHA.sha256_bytes(wm_d, wl_d).cpu().numpy()
+        if [out[i].tobytes() for i in range(n)] != [
+                hashlib.sha256(wm[i, : wl[i]].tobytes()).digest() for i in range(n)]:
+            raise AssertionError(f"sha256_bytes at width {width} differs from hashlib")
+        wargs = SHA.sha256_args(wm_d, wl_d)
+        odd[width] = {"blocks": int(((wl + 9 + 63) // 64).sum()),
+                      "ms": launch_ms(lambda stream: SHA.sha256_call(*wargs, stream), 200)}
+    nblocks = (lens_d + 9 + 63) // 64
     total = int(nblocks.sum())
-    bd = sha_bound(total, per_compression, total * 64 + n * (4 + 32))
+    ops = sha_ops((n, SHA_FIRST_BLOCK_OPS), (total - n, SHA_BLOCK_OPS),
+                  (total, SWAP64_OPS), (n, SWAP32_OPS))
+    bd = sha_bound(ops, n * msgs.shape[1] + n * (8 + 32))
+    bd["compressions"] = total
     bd["chain_floor_ms"] = int(nblocks.max()) * ns_per * 1e-6
     bd["bound_share"] = bd["bound_ms"] / ms["sha256_blocks"]
+    latency_floor(bd, int(nblocks.max()), probe, max_sm_clock_mhz(), ms["sha256_blocks"])
     emit({"phase": "sha256", "lanes": n, "width": msgs.shape[1],
           "all_lanes_match_hashlib": True, "words32_words64_lanes": n,
           "sha256_blocks_launches": launches, "max_abs_err": err, "ms": ms,
+          "kernel_at_widths": odd,
           "digests_per_s": n / ms["sha256"] * 1e3, "bound": bd, "card": nvidia_smi_line()})
     return {"name": "sha256_blocks", "route": "cuda",
             "source": "firedancer_tpu_torch/csrc/sha256.cu",
             "replaces": "firedancer_tpu/ops/sha256.py:49", "launches": launches,
             "max_abs_err": err, "ms": ms["sha256_blocks"],
-            "plain_ms": ms["sha256_blocks_plain"], "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"], "library_ms": None,
+            "plain_ms": ms["sha256_bytes_plain"], "entry_ms": ms["sha256"],
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"], "library_ms": None,
+            "latency_floor_ms": bd["latency_floor_ms"],
             "chain_floor_ms": bd["chain_floor_ms"]}
 
 
@@ -1120,11 +1531,12 @@ def run_rest(dev, batches) -> list:
 
     put = lambda a: torch_from(a, dev)  # noqa: E731
     sass = kbuild.sass("sha256")
-    per = {k: loop_counts(sass, k) for k in ("fdt_sha256_blocks", "fdt_poh_chain")}
-    emit({"phase": "sha256_sass", "compression_loops": per})
-    poh_row = phase_poh(dev, put, per["fdt_poh_chain"]["instructions"])
-    sha_row = phase_sha256(dev, put, batches[0], per["fdt_sha256_blocks"]["instructions"],
-                           poh_row.pop("ns_per_compression"))
+    per = {k: loop_profile(sass, k) for k in ("fdt_sha256_blocks", "fdt_poh_chain")}
+    probe = sha_op_probe(dev)
+    emit({"phase": "sha256_sass", "compression_loops": per, "probe": probe,
+          "probe_loops": all_loop_counts(kbuild.sass("probe/sha_probe"), "fdt_probe_sha_op")})
+    poh_row = phase_poh(dev, put, probe)
+    sha_row = phase_sha256(dev, put, batches[0], probe, poh_row.pop("ns_per_compression"))
     phase_reedsol(dev, put)
     phase_sign(dev, batches[1])
     phase_keccak_blake3(dev, put, batches[0])
@@ -1686,7 +2098,7 @@ def run(dev) -> dict:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.time()
-    names = kbuild.build_all()
+    names = kbuild.build_all(kbuild.sources() + PROBES)
     build_s = time.time() - t0
     # the host ring library of the tile runtime (tango/native/, utils/cbuild.py)
     t0 = time.time()

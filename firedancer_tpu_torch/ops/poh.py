@@ -7,11 +7,13 @@ so the batch axis holds many independent chains: `verify_entries` checks
 every entry of a slot at once, one lane per entry (the replay side, which
 verifies far more PoH than a leader generates).
 
-Every op runs on ops/sha256.py::poh_chain: on the card the fdt_poh_chain
-kernel (each lane loops its own hash count in registers), on the CPU the
-plain version (every lane runs the batch's largest count, masked, one
-batched compression per step).  Each entry point takes `device=None`,
-meaning the CUDA card.
+Every op runs on ops/sha256.py::poh_chain_bytes: on the card one launch
+of the fdt_poh_chain kernel (each group of 32 lanes loops its largest
+hash count, the state in registers, 32-byte states in and out), on the
+CPU the plain version (every lane runs the batch's largest count,
+masked, one batched compression per step).  The per-lane counts are made where the caller's inputs lie (on the
+host for numpy inputs) and copied; no word tensor is made on the card.
+Each entry point takes `device=None`, meaning the CUDA card.
 """
 
 from __future__ import annotations
@@ -26,30 +28,35 @@ def _states(state32, dev):
     st = devices.as_tensor(state32, torch.uint8, dev)
     if st.shape[-1] != 32:
         raise ValueError(f"want (..., 32) uint8 states, got {tuple(st.shape)}")
-    return S.words_from_bytes(st.reshape(-1, 32)), st.shape
+    return st.reshape(-1, 32), st.shape
+
+
+def _lanes(value, lanes: int, dtype, dev):
+    """(lanes,) of one value on `dev`, made on the host and copied."""
+    return torch.full((lanes,), value, dtype=dtype).to(dev)
 
 
 def append_n(state32, n: int, device=None):
     """Iterate state = SHA-256(state) n times.  state32: (..., 32) uint8 ->
     (..., 32) uint8 on `device`."""
     dev = devices.resolve(device)
-    w, shape = _states(state32, dev)
-    lanes = w.shape[0]
-    out = S.poh_chain(w, torch.full((lanes,), int(n), dtype=torch.int32, device=dev),
-                      torch.zeros_like(w), torch.zeros(lanes, dtype=torch.bool, device=dev))
-    return S.bytes_from_words(out).reshape(shape)
+    st, shape = _states(state32, dev)
+    lanes = st.shape[0]
+    out = S.poh_chain_bytes(st, _lanes(int(n), lanes, torch.int32, dev), st,
+                            _lanes(False, lanes, torch.bool, dev))
+    return out.reshape(shape)
 
 
 def mixin(state32, mix32, device=None):
     """state = SHA-256(state || mix): record an event into the chain.
     (..., 32) uint8 each -> (..., 32) uint8 on `device`."""
     dev = devices.resolve(device)
-    w, shape = _states(state32, dev)
-    m, _ = _states(mix32, dev)
-    lanes = w.shape[0]
-    out = S.poh_chain(w, torch.zeros(lanes, dtype=torch.int32, device=dev), m,
-                      torch.ones(lanes, dtype=torch.bool, device=dev))
-    return S.bytes_from_words(out).reshape(shape)
+    st, shape = _states(state32, dev)
+    mx, _ = _states(mix32, dev)
+    lanes = st.shape[0]
+    out = S.poh_chain_bytes(st, _lanes(0, lanes, torch.int32, dev), mx,
+                            _lanes(True, lanes, torch.bool, dev))
+    return out.reshape(shape)
 
 
 def verify_entries(start_states, hashcnts, mixins, has_mixin, max_hashcnt: int,
@@ -67,11 +74,11 @@ def verify_entries(start_states, hashcnts, mixins, has_mixin, max_hashcnt: int,
     hashcnt 0 with a mixin is the mixin alone, without one the start state
     (firedancer_tpu/ops/poh.py::_verify_entries_impl)."""
     dev = devices.resolve(device)
-    hc = devices.as_tensor(hashcnts, torch.int32, dev)
+    hc = torch.as_tensor(hashcnts).to(torch.int32)  # where the caller holds it
     if hc.numel() and int(hc.max()) > max_hashcnt:
         raise ValueError(f"hashcnt {int(hc.max())} exceeds max_hashcnt {max_hashcnt}")
-    w, _ = _states(start_states, dev)
-    m, _ = _states(mixins, dev)
-    has = devices.as_tensor(has_mixin, torch.bool, dev)
-    out = S.poh_chain(w, torch.where(has, hc - 1, hc), m, has)
-    return S.bytes_from_words(out)
+    has = torch.as_tensor(has_mixin).to(device=hc.device, dtype=torch.bool)
+    n_plain = torch.where(has, hc - 1, hc).to(dev)
+    st, _ = _states(start_states, dev)
+    mx, _ = _states(mixins, dev)
+    return S.poh_chain_bytes(st, n_plain, mx, has.to(dev))

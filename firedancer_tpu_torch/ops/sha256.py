@@ -5,7 +5,8 @@ The counterpart of firedancer_tpu/ops/sha256.py.  A SHA-256 word is a
 32-bit big-endian value; torch's uint32 has no `+`, `>>` or `<` on the CPU,
 so the plain versions carry each word in an int64 lane (value in
 [0, 2^32)) and mask with `& 0xFFFFFFFF`, as ops/sha512.py does for its
-64-bit words.  Every word tensor of this module is int64 in that form.
+64-bit words.  Every word tensor of this module is int64 in that form; the
+kernels take and give bytes.
 
 Entry points (each takes `device=None`, meaning the CUDA card):
   sha256(msgs, lens)   -> (B, 32) uint8 digests of variable-length messages
@@ -14,9 +15,13 @@ Entry points (each takes `device=None`, meaning the CUDA card):
   words_from_bytes, bytes_from_words: the big-endian conversions
 
 The two functions the kernels compute, each with its plain version:
-  sha256_blocks(words, nblocks)             (kernel fdt_sha256_blocks)
-  poh_chain(state, n_plain, mixin, has_mixin)  (kernel fdt_poh_chain; the
-      PoH ops of ops/poh.py and the fixed-size forms above run on it)
+  sha256_bytes(msgs, lens)                       (kernel fdt_sha256_blocks:
+      padding, words and every block of a lane in one launch; plain:
+      padded_words, then sha256_blocks_plain over the words)
+  poh_chain_bytes(state, n_plain, mixin, has_mixin)  (kernel fdt_poh_chain
+      on 32-byte states; plain: poh_chain_plain over the words.  The PoH
+      ops of ops/poh.py run on it; poh_chain, its words form, converts in
+      the wrapper and carries the fixed-size forms above)
 A CUDA tensor goes through the kernel or the call raises; a CPU tensor runs
 the plain version.  `LAUNCHES` counts kernel launches by kernel name (never
 plain runs).
@@ -25,6 +30,7 @@ plain runs).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -153,9 +159,34 @@ def poh_chain_plain(state, n_plain, mixin, has_mixin):
     return torch.where(has_mixin[:, None], _mixin_words(state, mixin), state)
 
 
-def _lib_fn(fn_name, argtypes):
-    fn = getattr(kbuild.load("sha256"), fn_name)
-    fn.argtypes = argtypes
+def sha256_bytes_plain(msgs, lens):
+    """(B, W) uint8 messages, (B,) lengths -> (B, 32) uint8 digests: the
+    JAX package's _sha256_impl over int64 words (padded_words, then
+    sha256_blocks_plain)."""
+    return bytes_from_words(sha256_blocks_plain(*padded_words(msgs, lens)))
+
+
+def poh_chain_bytes_plain(state, n_plain, mixin, has_mixin):
+    """poh_chain_plain on (B, 32) uint8 states and mixins -> (B, 32) uint8."""
+    return bytes_from_words(poh_chain_plain(
+        words_from_bytes(state), n_plain, words_from_bytes(mixin), has_mixin))
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # msgs, lens, lens64, out, B, width, stream
+    "fdt_sha256_blocks_launch": [_PTR, _PTR, _INT, _PTR, _INT, ctypes.c_int64, _PTR],
+    # state, n_plain, mixin, has_mixin, out, B, stream
+    "fdt_poh_chain_launch": [_PTR] * 5 + [_INT, _PTR],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_fn(name: str):
+    """csrc/sha256.cu's C function `name`, bound once per process (the
+    library is built and loaded on first use)."""
+    fn = getattr(kbuild.load("sha256"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -166,9 +197,11 @@ def _check(name, t, shape, dtype):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _u32(w):
-    """int64 words -> contiguous int32 with the same low 32 bits."""
-    return w.to(torch.int32).contiguous()
+def _aligned(t):
+    """A contiguous tensor whose data starts on 16 bytes (the kernels load
+    32-byte rows as two 16-byte words)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launched(kernel, err):
@@ -177,41 +210,67 @@ def _launched(kernel, err):
     LAUNCHES[kernel] += 1
 
 
-def _launch_sha256_blocks(words, nblocks):
-    bsz, max_blocks, _ = words.shape
-    dev = words.device
-    w32, nb = _u32(words), nblocks.to(torch.int32).contiguous()
-    _check("words", w32, (bsz, max_blocks, 16), torch.int32)
-    _check("nblocks", nb, (bsz,), torch.int32)
-    out = torch.empty((bsz, 8), dtype=torch.int32, device=dev)
-    fn = _lib_fn("fdt_sha256_blocks_launch",
-                 [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(w32.data_ptr(), nb.data_ptr(), out.data_ptr(), bsz, max_blocks, stream)
+def sha256_args(msgs, lens):
+    """Checked kernel inputs of sha256_bytes on the card and a fresh output:
+    -> (msgs, lens, out).  lens stays int32 or int64 (the kernel reads
+    either); another integer type is converted to int64."""
+    if lens.dtype not in (torch.int32, torch.int64):
+        lens = lens.to(torch.int64)
+    msgs, lens = msgs.contiguous(), lens.contiguous()
+    bsz, width = msgs.shape
+    _check("msgs", msgs, (bsz, width), torch.uint8)
+    _check("lens", lens, (bsz,), lens.dtype)
+    if lens.device != msgs.device:
+        raise ValueError(f"lens on {lens.device}, msgs on {msgs.device}")
+    return msgs, lens, torch.empty((bsz, 32), dtype=torch.uint8, device=msgs.device)
+
+
+def sha256_call(msgs, lens, out, stream) -> int:
+    """One launch of fdt_sha256_blocks on sha256_args' tensors; -> the CUDA
+    error code.  Counts nothing (sha256_bytes counts its launches)."""
+    bsz, width = msgs.shape
+    return kernel_fn("fdt_sha256_blocks_launch")(
+        msgs.data_ptr(), lens.data_ptr(), int(lens.dtype == torch.int64),
+        out.data_ptr(), bsz, width, stream)
+
+
+def _launch_sha256(msgs, lens):
+    msgs, lens, out = sha256_args(msgs, lens)
+    with torch.cuda.device(msgs.device):
+        err = sha256_call(msgs, lens, out, torch.cuda.current_stream().cuda_stream)
     _launched("sha256_blocks", err)
-    return out.to(torch.int64) & M32
+    return out
+
+
+def poh_args(state, n_plain, mixin, has_mixin):
+    """Checked kernel inputs of poh_chain_bytes on the card and a fresh
+    output: -> (state, n_plain, mixin, has_mixin, out)."""
+    bsz = state.shape[0]
+    st, mx = _aligned(state), _aligned(mixin)
+    n = n_plain.to(torch.int32).contiguous()
+    hm = has_mixin.contiguous()
+    hm = hm.view(torch.uint8) if hm.dtype == torch.bool else hm.to(torch.uint8)
+    _check("state", st, (bsz, 32), torch.uint8)
+    _check("mixin", mx, (bsz, 32), torch.uint8)
+    _check("n_plain", n, (bsz,), torch.int32)
+    _check("has_mixin", hm, (bsz,), torch.uint8)
+    return st, n, mx, hm, torch.empty((bsz, 32), dtype=torch.uint8, device=st.device)
+
+
+def poh_call(state, n_plain, mixin, has_mixin, out, stream) -> int:
+    """One launch of fdt_poh_chain on poh_args' tensors; -> the CUDA error
+    code.  Counts nothing (poh_chain_bytes counts its launches)."""
+    return kernel_fn("fdt_poh_chain_launch")(
+        state.data_ptr(), n_plain.data_ptr(), mixin.data_ptr(), has_mixin.data_ptr(),
+        out.data_ptr(), state.shape[0], stream)
 
 
 def _launch_poh_chain(state, n_plain, mixin, has_mixin):
-    bsz = state.shape[0]
-    dev = state.device
-    st, mx = _u32(state), _u32(mixin)
-    n = n_plain.to(torch.int32).contiguous()
-    hm = has_mixin.to(torch.uint8).contiguous()
-    _check("state", st, (bsz, 8), torch.int32)
-    _check("mixin", mx, (bsz, 8), torch.int32)
-    _check("n_plain", n, (bsz,), torch.int32)
-    _check("has_mixin", hm, (bsz,), torch.uint8)
-    out = torch.empty((bsz, 8), dtype=torch.int32, device=dev)
-    fn = _lib_fn("fdt_poh_chain_launch",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(st.data_ptr(), n.data_ptr(), mx.data_ptr(), hm.data_ptr(),
-                 out.data_ptr(), bsz, stream)
+    args = poh_args(state, n_plain, mixin, has_mixin)
+    with torch.cuda.device(state.device):
+        err = poh_call(*args, torch.cuda.current_stream().cuda_stream)
     _launched("poh_chain", err)
-    return out.to(torch.int64) & M32
+    return args[-1]
 
 
 def _dispatch(name, plain, launch, t, *args):
@@ -222,19 +281,32 @@ def _dispatch(name, plain, launch, t, *args):
     return launch(t, *args)
 
 
-def sha256_blocks(words, nblocks):
-    """(B, max_blocks, 16) padded words, (B,) block counts -> (B, 8) state
-    words.  CUDA tensors launch fdt_sha256_blocks; CPU tensors run
-    sha256_blocks_plain."""
-    return _dispatch("sha256_blocks", sha256_blocks_plain, _launch_sha256_blocks,
-                     words, nblocks)
+def sha256_bytes(msgs, lens):
+    """(B, W) uint8 messages, (B,) lengths (0 <= lens[i] <= W) -> (B, 32)
+    uint8 digests.  CUDA tensors launch fdt_sha256_blocks once; CPU
+    tensors run sha256_bytes_plain."""
+    return _dispatch("sha256_bytes", sha256_bytes_plain, _launch_sha256, msgs, lens)
+
+
+def poh_chain_bytes(state, n_plain, mixin, has_mixin):
+    """max(n_plain[i], 0) appends state = SHA-256(state), then, where
+    has_mixin[i], state = SHA-256(state || mixin[i]).  state, mixin: (B, 32)
+    uint8; n_plain: (B,) integers; has_mixin: (B,) bool -> (B, 32) uint8.
+    CUDA tensors launch fdt_poh_chain; CPU tensors run
+    poh_chain_bytes_plain."""
+    return _dispatch("poh_chain_bytes", poh_chain_bytes_plain, _launch_poh_chain,
+                     state, n_plain, mixin, has_mixin)
 
 
 def poh_chain(state, n_plain, mixin, has_mixin):
-    """See poh_chain_plain.  CUDA tensors launch fdt_poh_chain; CPU tensors
-    run poh_chain_plain."""
-    return _dispatch("poh_chain", poh_chain_plain, _launch_poh_chain,
-                     state, n_plain, mixin, has_mixin)
+    """poh_chain_plain's words form: on CUDA tensors the wrapper converts
+    the words to bytes and back around fdt_poh_chain; CPU tensors run
+    poh_chain_plain."""
+    if state.device.type == "cpu":
+        return poh_chain_plain(state, n_plain, mixin, has_mixin)
+    out = poh_chain_bytes(bytes_from_words(state), n_plain, bytes_from_words(mixin),
+                          has_mixin)
+    return words_from_bytes(out)
 
 
 # ---------------------------------------------------------------------------
@@ -242,18 +314,27 @@ def poh_chain(state, n_plain, mixin, has_mixin):
 # ---------------------------------------------------------------------------
 
 
+def _lens(lens, dev):
+    """(B,) lengths on `dev`, int32 or int64 as given (the kernel reads
+    either), any other type as int64."""
+    t = lens if isinstance(lens, torch.Tensor) else torch.as_tensor(lens)
+    dtype = t.dtype if t.dtype in (torch.int32, torch.int64) else torch.int64
+    return t.to(device=dev, dtype=dtype).contiguous()
+
+
 def sha256(msgs, lens, device=None):
     """Batch SHA-256.  msgs: (B, max_len) uint8; lens: (B,) byte counts
-    (numpy arrays or tensors) -> (B, 32) uint8 digests on `device`.
+    (numpy arrays or tensors) -> (B, 32) uint8 digests on `device`.  On
+    the card one launch of fdt_sha256_blocks, and no other device work
+    for uint8 messages and int32 or int64 lengths.
 
     Contract as firedancer_tpu/ops/sha256.py: 0 <= lens[j] <= max_len <
     2^28 for every lane."""
     dev = devices.resolve(device)
     msgs = devices.as_tensor(msgs, torch.uint8, dev)
-    lens = devices.as_tensor(lens, torch.int64, dev)
     if msgs.shape[1] >= MAX_LEN:
         raise ValueError(f"max_len {msgs.shape[1]} >= 2^28 unsupported")
-    return bytes_from_words(sha256_blocks(*padded_words(msgs, lens)))
+    return sha256_bytes(msgs, _lens(lens, dev))
 
 
 def _fixed(w, width, device):
@@ -271,7 +352,7 @@ def sha256_words32(w8, device=None):
     w, lead = _fixed(w8, 8, device)
     n = w.shape[0]
     out = poh_chain(w, torch.ones(n, dtype=torch.int32, device=w.device),
-                    torch.zeros_like(w), torch.zeros(n, dtype=torch.bool, device=w.device))
+                    w, torch.zeros(n, dtype=torch.bool, device=w.device))
     return out.reshape(lead + (8,))
 
 

@@ -480,30 +480,54 @@ def _sha_batch(n: int, width: int):
 
 @pytest.mark.parametrize("n,width", [(1, 0), (13, 64), (300, 1232), (4096, 200)])
 def test_sha256_blocks_kernel_matches_plain_and_hashlib(dev, n, width):
+    """fdt_sha256_blocks on (B, W) bytes, int32 and int64 lengths, against
+    sha256_bytes_plain on every lane; the entry point's digests against
+    hashlib."""
     msgs, lens = _sha_batch(n, width)
-    words, nblocks = SHA.padded_words(torch.from_numpy(msgs), torch.from_numpy(lens))
-    before = SHA.LAUNCHES["sha256_blocks"]
-    got = SHA.sha256_blocks(words.to(dev), nblocks.to(dev))
-    assert SHA.LAUNCHES["sha256_blocks"] == before + 1
-    np.testing.assert_array_equal(got.cpu().numpy(),
-                                  SHA.sha256_blocks_plain(words, nblocks).numpy())
+    plain = SHA.sha256_bytes_plain(torch.from_numpy(msgs), torch.from_numpy(lens)).numpy()
+    for dtype in (torch.int32, torch.int64):
+        before = SHA.LAUNCHES["sha256_blocks"]
+        got = SHA.sha256_bytes(torch.from_numpy(msgs).to(dev),
+                               torch.from_numpy(lens).to(dev, dtype))
+        assert SHA.LAUNCHES["sha256_blocks"] == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), plain)
     digests = SHA.sha256(msgs, lens).cpu().numpy()  # device=None: the card
     for i in range(0, n, max(1, n // 64)):
         assert digests[i].tobytes() == hashlib.sha256(msgs[i, : lens[i]].tobytes()).digest()
 
 
+@pytest.mark.parametrize("width", [1231, 1230, 1228, 66])
+def test_sha256_blocks_kernel_unaligned_rows(dev, width):
+    """Rows that are not 16-byte aligned, by their width or by a message
+    view 1, 6 or 15 bytes into its storage: the kernel stages each from the
+    granule that holds it and shifts the bytes into place."""
+    msgs, lens = _sha_batch(70, width)
+    plain = SHA.sha256_bytes_plain(torch.from_numpy(msgs), torch.from_numpy(lens)).numpy()
+    got = SHA.sha256_bytes(torch.from_numpy(msgs).to(dev), torch.from_numpy(lens).to(dev))
+    np.testing.assert_array_equal(got.cpu().numpy(), plain)
+    for off in (1, 6, 15):
+        flat = torch.zeros(70 * width + off, dtype=torch.uint8, device=dev)
+        flat[off:] = torch.from_numpy(msgs).reshape(-1).to(dev)
+        got = SHA.sha256_bytes(flat[off:].view(70, width), torch.from_numpy(lens).to(dev))
+        np.testing.assert_array_equal(got.cpu().numpy(), plain)
+
+
 @pytest.mark.parametrize("n", [1, 33, 1024])
 def test_poh_chain_kernel_matches_plain(dev, n):
     rng = np.random.default_rng(n)
-    state = torch.from_numpy(rng.integers(0, 1 << 32, (n, 8), np.int64))
-    mixin = torch.from_numpy(rng.integers(0, 1 << 32, (n, 8), np.int64))
+    state = torch.from_numpy(rng.integers(0, 256, (n, 32), np.uint8))
+    mixin = torch.from_numpy(rng.integers(0, 256, (n, 32), np.uint8))
     n_plain = torch.from_numpy(rng.integers(-1, 9, n).astype(np.int32))
     has = torch.from_numpy(rng.integers(0, 2, n).astype(bool))
     before = SHA.LAUNCHES["poh_chain"]
-    got = SHA.poh_chain(*(t.to(dev) for t in (state, n_plain, mixin, has)))
+    got = SHA.poh_chain_bytes(*(t.to(dev) for t in (state, n_plain, mixin, has)))
     assert SHA.LAUNCHES["poh_chain"] == before + 1
     np.testing.assert_array_equal(
-        got.cpu().numpy(), SHA.poh_chain_plain(state, n_plain, mixin, has).numpy())
+        got.cpu().numpy(), SHA.poh_chain_bytes_plain(state, n_plain, mixin, has).numpy())
+    words = [SHA.words_from_bytes(t) for t in (state, mixin)]
+    np.testing.assert_array_equal(
+        SHA.poh_chain(words[0].to(dev), n_plain.to(dev), words[1].to(dev), has.to(dev)).cpu(),
+        SHA.poh_chain_plain(words[0], n_plain, words[1], has))
 
 
 def test_poh_entry_points_on_card(dev):
@@ -518,23 +542,59 @@ def test_poh_entry_points_on_card(dev):
                                   POH.mixin(st, mx, device="cpu").numpy())
     hc = np.array([0, 0, 1, 5, 9], np.int32)
     has = np.array([True, False, True, False, True])
+    before = SHA.LAUNCHES["poh_chain"]
     np.testing.assert_array_equal(
         POH.verify_entries(st, hc, mx, has, 9).cpu().numpy(),
+        POH.verify_entries(st, hc, mx, has, 9, device="cpu").numpy())
+    assert SHA.LAUNCHES["poh_chain"] == before + 1
+    np.testing.assert_array_equal(  # counts already on the card
+        POH.verify_entries(st, torch.from_numpy(hc).to(dev), mx,
+                           torch.from_numpy(has).to(dev), 9).cpu().numpy(),
         POH.verify_entries(st, hc, mx, has, 9, device="cpu").numpy())
     w = SHA.words_from_bytes(torch.from_numpy(st))
     np.testing.assert_array_equal(SHA.sha256_words32(w).cpu().numpy(),
                                   SHA.sha256_words32(w, device="cpu").numpy())
+    w64 = SHA.words_from_bytes(torch.from_numpy(np.concatenate([st, mx], axis=1)))
+    np.testing.assert_array_equal(SHA.sha256_words64(w64).cpu().numpy(),
+                                  SHA.sha256_words64(w64, device="cpu").numpy())
+
+
+def test_poh_chain_kernel_unaligned_states(dev):
+    """States one byte into their storage are copied to an aligned buffer
+    by the wrapper; the kernel refuses a misaligned pointer."""
+    rng = np.random.default_rng(8)
+    raw = torch.from_numpy(rng.integers(0, 256, 3 * 32 + 1, np.uint8)).to(dev)
+    st = raw[1:].view(3, 32)
+    n = torch.full((3,), 4, dtype=torch.int32, device=dev)
+    has = torch.zeros(3, dtype=torch.bool, device=dev)
+    np.testing.assert_array_equal(
+        SHA.poh_chain_bytes(st, n, st, has).cpu().numpy(),
+        SHA.poh_chain_bytes_plain(st.cpu(), n.cpu(), st.cpu(), has.cpu()).numpy())
+    out = torch.empty((3, 32), dtype=torch.uint8, device=dev)
+    err = SHA.poh_call(st, n, st, has.view(torch.uint8), out,
+                       torch.cuda.current_stream().cuda_stream)
+    assert err != 0  # cudaErrorMisalignedAddress, refused before the launch
 
 
 def test_sha_kernel_wrappers_reject_bad_inputs(dev):
-    words = torch.zeros((2, 3, 15), dtype=torch.int64, device=dev)
+    launches = dict(SHA.LAUNCHES)
     with pytest.raises(ValueError, match="shape"):
-        SHA.sha256_blocks(words, torch.zeros(2, dtype=torch.int32, device=dev))
+        SHA.sha256_bytes(torch.zeros((2, 64), dtype=torch.uint8, device=dev),
+                         torch.zeros(3, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="uint8"):
+        SHA.sha256_bytes(torch.zeros((2, 64), dtype=torch.int32, device=dev),
+                         torch.zeros(2, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="shape"):
-        SHA.poh_chain(torch.zeros((2, 8), dtype=torch.int64, device=dev),
-                      torch.zeros(3, dtype=torch.int32, device=dev),
-                      torch.zeros((2, 8), dtype=torch.int64, device=dev),
-                      torch.zeros(2, dtype=torch.bool, device=dev))
+        SHA.poh_chain_bytes(torch.zeros((2, 32), dtype=torch.uint8, device=dev),
+                            torch.zeros(3, dtype=torch.int32, device=dev),
+                            torch.zeros((2, 32), dtype=torch.uint8, device=dev),
+                            torch.zeros(2, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="shape"):
+        SHA.poh_chain_bytes(torch.zeros((2, 31), dtype=torch.uint8, device=dev),
+                            torch.zeros(2, dtype=torch.int32, device=dev),
+                            torch.zeros((2, 31), dtype=torch.uint8, device=dev),
+                            torch.zeros(2, dtype=torch.bool, device=dev))
+    assert SHA.LAUNCHES == launches
 
 
 def test_plain_ops_on_card_match_cpu(dev):

@@ -101,14 +101,37 @@ def test_verify_entries_rejects_hashcnt_above_bound():
         PJ.verify_entries(starts, hashcnts, mixins, has, 5)
 
 
-def test_chain_kernel_host_build_matches_jax(host_sha, capfd):  # noqa: F811
-    """fdt_poh_chain's host form on verify_entries' inputs (n_plain =
-    hashcnt - has_mixin, so -1 for hashcnt 0 with a mixin) equals the JAX
-    verify_entries."""
-    starts, hashcnts, mixins, has = _entries(5, 16, 11)
-    words = lambda b: ST.words_from_bytes(torch.from_numpy(b)).numpy()  # noqa: E731
+@pytest.mark.parametrize("seed,b,max_hashcnt", [(5, 16, 11), (6, 40, 3)])
+def test_chain_kernel_host_build_matches_jax(host_sha, capfd, seed, b, max_hashcnt):  # noqa: F811
+    """fdt_poh_chain's host form on verify_entries' inputs as bytes (n_plain
+    = hashcnt - has_mixin, so -1 for hashcnt 0 with a mixin) equals the
+    JAX verify_entries."""
+    starts, hashcnts, mixins, has = _entries(seed, b, max_hashcnt)
     n_plain = np.where(has, hashcnts - 1, hashcnts)
-    got = host_chain(host_sha, words(starts), n_plain, words(mixins), has)
-    want = np.asarray(PJ.verify_entries(starts, hashcnts, mixins, has, 11))
-    np.testing.assert_array_equal(ST.bytes_from_words(torch.from_numpy(got)).numpy(), want)
+    got = host_chain(host_sha, starts, n_plain, mixins, has)
+    want = np.asarray(PJ.verify_entries(starts, hashcnts, mixins, has, max_hashcnt))
+    np.testing.assert_array_equal(got, want)
     assert_no_sanitizer_report(capfd)
+
+
+def test_verify_entries_hands_the_kernel_bytes_and_counts(monkeypatch):
+    """verify_entries calls poh_chain_bytes once, with the 32-byte states
+    and mixins as given and n_plain made beside the caller's counts: no word
+    tensor on the way to the kernel."""
+    starts, hashcnts, mixins, has = _entries(7, 8, 5)
+    calls = []
+    real = ST.poh_chain_bytes
+
+    def spy(state, n_plain, mixin, has_mixin):
+        calls.append((state, n_plain, mixin, has_mixin))
+        return real(state, n_plain, mixin, has_mixin)
+
+    monkeypatch.setattr(ST, "poh_chain_bytes", spy)
+    got = PT.verify_entries(starts, hashcnts, mixins, has, 5, device="cpu").numpy()
+    assert len(calls) == 1
+    state, n_plain, mixin, has_mixin = calls[0]
+    assert state.dtype == mixin.dtype == torch.uint8 and state.shape == (8, 32)
+    assert n_plain.dtype == torch.int32 and has_mixin.dtype == torch.bool
+    np.testing.assert_array_equal(n_plain.numpy(), np.where(has, hashcnts - 1, hashcnts))
+    np.testing.assert_array_equal(got, np.asarray(PJ.verify_entries(starts, hashcnts, mixins,
+                                                                    has, 5)))
