@@ -109,7 +109,9 @@ and the rest of ops/, each at the size its users run:
                _encode_host; recovered from three seeded 32-row losses (one
                keeps only parity rows); 31 survivors give None
   sign         sign_many over 4096 distinct keys and messages, every
-               signature held against golden.sign
+               signature held against hostpath.sign (golden's bytes, by
+               tests/test_torch_hostpath.py) and every 16th against
+               golden.sign
   keccak_blake3  keccak256 of the corpus's 4096 messages (256 seeded lanes
                against digest_host), blake3 of 4096 messages of 0-1024
                bytes (256 lanes against the CPU run, the empty-input vector)
@@ -148,8 +150,9 @@ and the multi-device layer:
                16 full device batches); held exactly: every tile's counters
                against the pool's good mask, survivors and payloads byte for
                byte, 16 device batches, 16 verify_core launches after the
-               one warm-up, no fallback; run at the run loop's default idle
-               sleep (50 us) and at 1 ms, and once more at 1 ms under
+               one warm-up, no fallback; run at a 1 ms idle sleep (the run
+               loop's default 50 us run was dropped to keep the script in
+               its time with the wire runs), and once more at 1 ms under
                torch.profiler for the card's kernel-time share; txns/s, e2e
                p50/p99 at the sink, the verify hop's p99, ms per device
                batch from the pool's dispatch and land stamps, and the busy
@@ -158,6 +161,28 @@ and the multi-device layer:
                checked), and a profiled pair (Python, native) at 1 ms for
                the card's kernel-time share; each run's stem_frags,
                py_frags and py_credit by tile
+  wire         the wire front through entry.ingress(front="wire"): net ->
+               quic (via_net) -> verify -> dedup -> sink over 127.0.0.1
+               sockets, the tiles pool's raw txns 128 times in order as
+               65,536 legacy datagrams (UdpBlaster, burst 64, its window
+               the net tile's granted SO_RCVBUF over TRUESIZE less a
+               burst, landed fed from the QUIC tile's rx_txns_udp at every
+               1 ms poll) and 4 QUIC connections, in a spawned child,
+               sending the pool once (128 txns each) after their
+               handshakes, overlapping the legacy stream; on the
+               Python loop, then on the native stem (net's rx hook and tx
+               handler and dedup on fdt_stem.c); held exactly
+               (check_wire): net received every datagram sent, no
+               oversize drop, 65,536 legacy and 512 QUIC txns at quic, 4
+               connections (conns_opened 12: ROADMAP C-5), every client
+               established with the identity's key as its peer, verify's
+               failures the corrupt sends, verify_core launches = device
+               batches + the warm-up (partial batches: at least
+               ceil(frags / 4096)), the 466 survivors equal the good tags
+               and the tiles phase's survivors, each row its transaction
+               and trailer byte for byte; legacy and QUIC txns/s,
+               handshake ms, e2e p50/p99, the verify hop's p99, net's
+               seconds in fdt_stem_run, the window and SO_RCVBUF
   leader       the leader pipeline through entry.leader: synth -> verify ->
                dedup -> pack (depth 4096, K = 1024 over 1024 account bits,
                2 ms cadence, 31 txns and 1.5M CU a microblock, its select
@@ -167,8 +192,9 @@ and the multi-device layer:
                the card)
                <-> sign -> store, with a recording sink beside the PoH tile
                on each bank's ring; seven runs: the tiles phase's pool as
-               32,768 frags with select on at the run loop's default idle
-               sleep and at 1 ms and select off at 1 ms, and 8,192
+               16,384 frags with select on and off at 1 ms (the run
+               loop's default 50 us run was dropped, and the frags
+               halved, for the wire run's time), and 8,192
                distinct transfers over 1,024 payers (tiles/bench.py's
                corpus, signed on the card) each once, paced so that pack's
                4,096-txn buffer never fills, select on, 1 ms; each 1 ms
@@ -176,7 +202,11 @@ and the multi-device layer:
                (stem="native": dedup, pack, poh and shred on fdt_stem.c,
                stem_engaged and stem_frags checked on those four), in
                pairs, the select-on 1 ms pair under torch.profiler for
-               the card's busy share over the run; held
+               the card's busy share over the run; and a seventh run
+               with the wire front (entry.leader(front="wire"), native
+               stem, select on, 1 ms: 32,768 legacy datagrams of the
+               pool and the 4 QUIC connections), held to check_wire's
+               front counters too; held
                exactly: verify and dedup as in tiles, every good txn
                inserted by pack and none rejected, every good txn executed
                once with its fee, completions ==
@@ -304,6 +334,14 @@ def _golden_sign_chunk(items):
     from firedancer_tpu_torch.ops.ed25519 import golden
 
     return [golden.sign(sk, m) for sk, m in items]
+
+
+def _host_sign_chunk(items):
+    """Worker: hostpath.sign of (secret, message) pairs."""
+    sys.path.insert(0, ROOT)
+    from firedancer_tpu_torch.ops.ed25519 import hostpath
+
+    return [hostpath.sign(sk, m) for sk, m in items]
 
 
 def _sign_chunk(job):
@@ -1495,9 +1533,16 @@ def phase_reedsol(dev, put) -> None:
           "matmul_dtype": str(RS.MATMUL_DTYPE), "card": nvidia_smi_line()})
 
 
+#: the sign phase's lanes held against golden.sign too (every 16th)
+SIGN_GOLDEN_STRIDE = 16
+
+
 def phase_sign(dev, bt) -> None:
     """sign_many over B distinct keys and messages, every signature held
-    against golden.sign (in a pool of host processes)."""
+    against hostpath.sign (byte for byte golden.sign's:
+    tests/test_torch_hostpath.py) and every SIGN_GOLDEN_STRIDE-th against
+    golden.sign itself, in a pool of host processes (golden on every lane
+    took 130-180 s of the script's time)."""
     from firedancer_tpu_torch.ops.ed25519 import sign as SIGN
 
     rng = np.random.default_rng(2031)
@@ -1511,20 +1556,30 @@ def phase_sign(dev, bt) -> None:
     scalars = torch_from(np.stack([np.frombuffer(s[32:], np.uint8) for s in sigs]), dev)
     base_ms = cuda_ms(lambda: SIGN._base_mul_compress(scalars), reps=1)
     procs = min(8, os.cpu_count() or 1)
+    sampled = list(range(0, n, SIGN_GOLDEN_STRIDE))
     t0 = time.time()
     with multiprocessing.get_context("spawn").Pool(procs) as pool:
-        parts = pool.map(_golden_sign_chunk, [pairs[i::procs] for i in range(procs)])
-    golden_s = time.time() - t0
+        host = pool.map(_host_sign_chunk, [pairs[i::procs] for i in range(procs)])
+        t1 = time.time()
+        gold = pool.map(_golden_sign_chunk,
+                        [[pairs[k] for k in sampled[i::procs]] for i in range(procs)])
+    golden_s = time.time() - t1
     want = [None] * n
-    for i, part in enumerate(parts):
+    for i, part in enumerate(host):
         want[i::procs] = part
+    want_golden = [None] * len(sampled)
+    for i, part in enumerate(gold):
+        want_golden[i::procs] = part
     if sigs != want:
+        raise AssertionError("sign_many differs from hostpath.sign")
+    if [sigs[k] for k in sampled] != want_golden:
         raise AssertionError("sign_many differs from golden.sign")
     emit({"phase": "sign", "lanes": n, "distinct_keys": len({p[0] for p in pairs}),
-          "all_match_golden": True, "sign_many_seconds": sign_s,
+          "all_match_hostpath": True, "golden_lanes_matched": len(sampled),
+          "sign_many_seconds": sign_s,
           "signs_per_s": n / sign_s, "base_mul_compress_ms": base_ms,
-          "golden_seconds": golden_s, "golden_processes": procs,
-          "card": nvidia_smi_line()})
+          "hostpath_seconds": t1 - t0, "golden_seconds": golden_s,
+          "processes": procs, "card": nvidia_smi_line()})
 
 
 def torch_from(a, dev):
@@ -2104,16 +2159,17 @@ def phase_pool(dev, batches) -> None:
           "card": nvidia_smi_line(), "seconds": time.time() - t0})
 
 
-#: the tiles phase: pool size, frags streamed, pool seed, the run loop's
-#: idle sleeps (its default, and the 1 ms at which idle tile threads stop
-#: starving the verify worker of the GIL)
+#: the tiles phase: pool size, frags streamed, pool seed
 TILES_POOL, TILES_FRAGS, TILES_SEED = 512, 65536, 5
-#: the tiles phase's runs: (the run loop's idle sleep, its inner loop);
+#: the tiles phase's runs: (the run loop's idle sleep, its inner loop; 1 ms,
+#: at which idle tile threads stop starving the verify worker of the GIL);
 #: each native run follows its Python twin, and the profiled pair runs
 #: after them at the last idle sleep
-TILES_RUNS = ((50e-6, "python"), (1e-3, "python"), (1e-3, "native"))
+TILES_RUNS = ((1e-3, "python"), (1e-3, "native"))
 #: the tiles that run on the native stem under stem="native", by phase
-STEM_TILES = {"tiles": ("dedup",), "leader": ("dedup", "pack", "poh", "shred")}
+STEM_TILES = {"tiles": ("dedup",), "leader": ("dedup", "pack", "poh", "shred"),
+              "wire": ("net", "dedup"),
+              "wire_leader": ("net", "dedup", "pack", "poh", "shred")}
 
 
 def stamps_summary(stamps, seconds: float) -> dict:
@@ -2145,9 +2201,10 @@ def stamps_summary(stamps, seconds: float) -> dict:
 def check_tiles_front(r, launches: int, frags: int = TILES_FRAGS) -> None:
     """The verify and dedup tiles' exact checks (tiles and leader phases):
     `frags` frags streamed as whole passes over the pool.  A paced leader
-    run's synth releases frags as the banks execute them, so the verify
-    tile lands partial batches: as many as the timing gives, at least
-    ceil(frags / B); every other run lands full batches only."""
+    run's synth releases frags as the banks execute them, and a wire run's
+    senders pace theirs, so the verify tile lands partial batches: as many
+    as the timing gives, at least ceil(frags / B); every other run lands
+    full batches only."""
     c = r["counters"]
     v = c["verify"]
     good = r["pool"]["good"]
@@ -2157,7 +2214,8 @@ def check_tiles_front(r, launches: int, frags: int = TILES_FRAGS) -> None:
         ("verify", "in_frags"): frags,
         ("verify", "verify_fail_txns"): (len(good) - n_good) * passes,
         ("verify", "out_frags"): n_good * passes,
-        ("verify", "device_batches"): (max(batches, -(-frags // B)) if r.get("paced")
+        ("verify", "device_batches"): (max(batches, -(-frags // B))
+                                       if r.get("paced") or "wire" in r
                                        else frags // B),
         ("verify", "fallback_batches"): 0,
         ("verify", "device_errors"): 0,
@@ -2277,32 +2335,175 @@ def phase_tiles() -> None:
           "msg_width": W, "n_good": int(pool[2].sum()), "checks": "exact", "runs": runs,
           "kernel_time_share": shares, "card": nvidia_smi_line(),
           "seconds": time.time() - t0})
-    return pool
+    return pool, r["survivors"]
+
+
+#: the wire phase: legacy passes over the tiles phase's pool (65,536
+#: datagrams), the QUIC connections that together send the pool once, the
+#: runs (the run loop's idle sleep, its inner loop), Python first
+WIRE_PASSES, WIRE_CLIENTS = 128, 4
+WIRE_RUNS = ((1e-3, "python"), (1e-3, "native"))
+#: legacy passes of the wire leader run (32,768 datagrams)
+WIRE_LEADER_PASSES = 64
+
+
+def wire_traffic(pool, passes: int):
+    """The wire runs' senders: the pool's raw txns `passes` times in order
+    as legacy datagrams (a UdpBlaster) and the pool once over WIRE_CLIENTS
+    QUIC connections; -> (WireTraffic, frags: every txn sent)."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.tiles.bench import WireTraffic
+
+    raws = entry.raw_txns(pool)
+    traffic = WireTraffic(raws * passes, raws, n_clients=WIRE_CLIENTS, seed=TILES_SEED)
+    return traffic, traffic.txns
+
+
+def wire_identity() -> bytes:
+    """The QUIC tile's identity key: 32 bytes from default_rng(TILES_SEED)."""
+    return np.random.default_rng(TILES_SEED).integers(0, 256, 32, np.uint8).tobytes()
+
+
+def check_wire(r, launches: int, n_legacy: int, identity_pub: bytes,
+               tiles_survivors=None) -> None:
+    """A wire run's exact checks (the wire front; verify, dedup and the sink
+    as in check_tiles with the QUIC pass added); raises on any miss."""
+    from firedancer_tpu_torch.tiles import wire as WI
+
+    w, c = r["wire"], r["counters"]
+    n_quic = sum(cl["txns"] for cl in w["quic_clients"])
+    n_conns = len(w["quic_clients"])
+    sent = w["dgrams_sent"]
+    got = {"net_rx_dgrams": w["net_rx_dgrams"], "oversize_drops": w["oversize_drops"],
+           "rx_txns_udp": w["rx_txns_udp"], "rx_txns_quic": w["rx_txns_quic"],
+           "connections": w["connections"], "conns_opened": w["conns_opened"],
+           "parse_fail_txns": c["quic"]["parse_fail_txns"]}
+    want = {"net_rx_dgrams": sent["legacy"] + sent["quic"], "oversize_drops": 0,
+            "rx_txns_udp": n_legacy, "rx_txns_quic": n_quic,
+            "connections": n_conns, "conns_opened": 3 * n_conns,
+            "parse_fail_txns": 0}
+    if got != want or sent["legacy"] != n_legacy:
+        raise AssertionError(f"wire counters {got} != {want} (legacy sent "
+                             f"{sent['legacy']} of {n_legacy})")
+    bad = [cl for cl in w["quic_clients"]
+           if not cl["established"] or cl["peer_identity"] != identity_pub]
+    if bad:
+        raise AssertionError(f"QUIC clients not established or with another "
+                             f"peer identity: {bad}")
+    frags = n_legacy + n_quic
+    check_tiles_front(r, launches, frags)
+    good = r["pool"]["good"]
+    rows, szs, tags = r["pool"]["rows"], r["pool"]["szs"], r["pool"]["tags"]
+    if "sink" in c:
+        if c["sink"]["sunk_frags"] != int(good.sum()):
+            raise AssertionError(f"sink took {c['sink']['sunk_frags']} of {int(good.sum())}")
+        if sorted(r["survivors"].tolist()) != sorted(tags[good].tolist()):
+            raise AssertionError("sink survivors differ from the pool's good tags")
+        if tiles_survivors is not None and (
+                sorted(r["survivors"].tolist()) != sorted(tiles_survivors.tolist())):
+            raise AssertionError("sink survivors differ from the tiles phase's")
+        at = {int(t): i for i, t in enumerate(tags)}
+        tr = WI.parse_trailers(rows, szs.astype(np.int64))
+        for row, sz, tag in zip(r["payloads"], r["sizes"], r["survivors"]):
+            i = at[int(tag)]
+            n = tr["txn_sz"][i]
+            if row[:n].tobytes() != rows[i, :n].tobytes() or not (
+                    sz == szs[i] and np.array_equal(row[:sz], rows[i, :sz])):
+                raise AssertionError(f"sink row of tag {int(tag):#x} differs from "
+                                     "its transaction and trailer")
+
+
+def phase_wire(pool, tiles_survivors) -> dict:
+    """The wire front on the card through entry.ingress(front="wire"): net
+    -> quic -> verify -> dedup -> sink over real loopback sockets, at the
+    verify tile's deployment size; see the module docstring.  -> the
+    verify_core launches of its runs."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.ops.ed25519 import hostpath
+    from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
+    from firedancer_tpu_torch.tango import rings as R
+
+    t0 = time.time()
+    identity = wire_identity()
+    pub = hostpath.public_from_secret(identity)
+    n_legacy = len(pool[0]) * WIRE_PASSES
+    runs, launches_all = [], 0
+    orig_stem_run = R.Stem.run
+    for idle_s, stem in WIRE_RUNS:
+        stem_s = {}
+
+        def stem_run(self, *a, **kw):
+            t = time.perf_counter()
+            out = orig_stem_run(self, *a, **kw)
+            name = STEM_HANDLER_TILES[self.spec.handler]
+            stem_s[name] = stem_s.get(name, 0.0) + time.perf_counter() - t
+            return out
+
+        traffic, _frags = wire_traffic(pool, WIRE_PASSES)
+        R.Stem.run = stem_run
+        try:
+            sync()
+            VC.LAUNCHES = 0
+            r = entry.ingress(pool, max_lanes=B, idle_sleep_s=idle_s, stem=stem,
+                              front="wire", traffic=traffic, identity_secret=identity)
+            sync()
+            launches = VC.LAUNCHES
+        finally:
+            R.Stem.run = orig_stem_run
+        check_wire(r, launches, n_legacy, pub, tiles_survivors)
+        if stem == "native":
+            check_stem(r, STEM_TILES["wire"])
+        launches_all += launches
+        w = r["wire"]
+        runs.append({
+            "idle_sleep_us": idle_s * 1e6, "stem": stem,
+            "txns_per_s": r["txns_per_s"], "seconds": r["seconds"],
+            "legacy_txns_per_s": w["legacy_txns_per_s"],
+            "quic_txns_per_s": w["quic_txns_per_s"],
+            "handshake_ms": w["handshake_ms"],
+            "e2e_p50_us": r["e2e_p50_us"], "e2e_p99_us": r["e2e_p99_us"],
+            "verify_hop_p99_us": r["verify_hop_p99_us"],
+            "dgrams_sent": w["dgrams_sent"], "net_rx_dgrams": w["net_rx_dgrams"],
+            "window": w["window"], "rcvbuf": w["rcvbuf"], "truesize": w["truesize"],
+            "device_batches": r["counters"]["verify"]["device_batches"],
+            "verify_core_launches_after_warmup": launches - 1,
+            "stem_run_seconds": stem_s, "stem_counts": stem_counts(r),
+            "quic_tile": {k: r["counters"]["quic"][k] for k in (
+                "rx_dgrams", "tx_dgrams", "rx_txns_udp", "rx_txns_quic",
+                "conns_opened", "loop_iters")},
+            **stamps_summary(r["landed_stamps"], r["seconds"])})
+    emit({"phase": "wire", "pool": len(pool[0]), "legacy_passes": WIRE_PASSES,
+          "quic_clients": WIRE_CLIENTS, "lanes": B, "msg_width": W,
+          "n_good": int(pool[2].sum()), "checks": "exact", "runs": runs,
+          "card": nvidia_smi_line(), "seconds": time.time() - t0})
+    return {"verify_core": launches_all}
 
 
 #: the leader phase's runs: (pool, pack device select, the run loop's idle
 #: sleep, its inner loop); "tiles" is the tiles phase's pool and frags,
 #: "transfers" the many-payer transfer corpus, each frag once, paced
 #: (entry.leader's closed loop: its 8,192 distinct txns exceed pack's
-#: 4,096-txn buffer).  Each native run sits next to its Python twin, the
-#: pairs in turns (Python first, then native first), since host-clock rates
-#: move between runs
-LEADER_RUNS = (("tiles", True, 50e-6, "python"),
-               ("tiles", True, 1e-3, "python"), ("tiles", True, 1e-3, "native"),
+#: 4,096-txn buffer), "wire" the tiles pool behind the wire front (64
+#: legacy passes and the QUIC pass).  Each native run sits next to its
+#: Python twin, the pairs in turns (Python first, then native first), since
+#: host-clock rates move between runs
+LEADER_RUNS = (("tiles", True, 1e-3, "python"), ("tiles", True, 1e-3, "native"),
                ("tiles", False, 1e-3, "native"), ("tiles", False, 1e-3, "python"),
-               ("transfers", True, 1e-3, "python"), ("transfers", True, 1e-3, "native"))
+               ("transfers", True, 1e-3, "python"), ("transfers", True, 1e-3, "native"),
+               ("wire", True, 1e-3, "native"))
 #: the runs (pool, select, idle sleep) whose Python and native pair runs
 #: under torch.profiler: the card's busy share under each loop
 LEADER_PROFILED = ("tiles", True, 1e-3)
 #: the stem handler ids (tango/rings.py STEM_H_*) by tile
-STEM_HANDLER_TILES = {1: "dedup", 3: "pack", 4: "poh", 5: "shred"}
+STEM_HANDLER_TILES = {1: "dedup", 3: "pack", 4: "poh", 5: "shred", 6: "net"}
 #: the transfer corpus: distinct signed transfers, payers, seed
 #: (firedancer_tpu/tiles/bench.py's default payer count)
 TRANSFER_TXNS, TRANSFER_SIGNERS, TRANSFER_SEED = 8192, 1024, 6
-#: frags of each run on the tiles phase's pool (half of TILES_FRAGS: with
-#: the block egress a run takes 34-46 s at 65,536 frags on one H100, and
-#: the script must stay well inside its time limit)
-LEADER_FRAGS = 32768
+#: frags of each run on the tiles phase's pool (a quarter of TILES_FRAGS:
+#: with the block egress a run took 34-46 s at 65,536 frags on one H100,
+#: and the wire runs took the script to 736 s at 32,768; it must stay
+#: within 750 s)
+LEADER_FRAGS = 16384
 #: recorded select calls held against the plain version after each run
 LEADER_RECORDED = 3
 
@@ -2393,7 +2594,10 @@ def phase_leader(dev, pool) -> dict:
     orig_finish = ShredTile._finish_slot
     orig_stem_run = R.Stem.run
     tpool, sign_s = transfer_pool(dev)
-    pools = {"tiles": (pool, LEADER_FRAGS), "transfers": (tpool, TRANSFER_TXNS)}
+    pools = {"tiles": (pool, LEADER_FRAGS), "transfers": (tpool, TRANSFER_TXNS),
+             "wire": (pool, len(pool[0]) * (WIRE_LEADER_PASSES + 1))}
+    identity = wire_identity()
+    wire_pub = None
     runs, first = [], None
     for kind, select, idle_s, stem in LEADER_RUNS:
         run_pool, frags = pools[kind]
@@ -2433,10 +2637,19 @@ def phase_leader(dev, pool) -> dict:
             PS.LAUNCHES = 0
             for k in S.LAUNCHES:
                 S.LAUNCHES[k] = 0
+            wire_kw = {}
+            if kind == "wire":
+                from firedancer_tpu_torch.ops.ed25519 import hostpath
+
+                wire_pub = hostpath.public_from_secret(identity)
+                traffic, _n = wire_traffic(run_pool, WIRE_LEADER_PASSES)
+                wire_kw = {"front": "wire", "traffic": traffic,
+                           "identity_secret": identity}
+
             def run():
                 return entry.leader(run_pool, total=frags, max_lanes=B, n_banks=2,
                                     pack_device_select=select, idle_sleep_s=idle_s,
-                                    paced=kind == "transfers", stem=stem)
+                                    paced=kind == "transfers", stem=stem, **wire_kw)
 
             share = None
             if (kind, select, idle_s) == LEADER_PROFILED:
@@ -2453,8 +2666,10 @@ def phase_leader(dev, pool) -> dict:
             ShredTile._finish_slot = orig_finish
             R.Stem.run = orig_stem_run
         check_leader(r, vc_launches, frags)
+        if kind == "wire":
+            check_wire(r, vc_launches, len(run_pool[0]) * WIRE_LEADER_PASSES, wire_pub)
         if stem == "native":
-            check_stem(r, STEM_TILES["leader"])
+            check_stem(r, STEM_TILES["wire_leader" if kind == "wire" else "leader"])
         if ps_launches != len(calls) or (select and not calls):
             raise AssertionError(f"pack_select launched {ps_launches} times for "
                                  f"{len(calls)} select calls (select {select})")
@@ -2481,6 +2696,8 @@ def phase_leader(dev, pool) -> dict:
             first = {"pack_select": ps_launches,
                      **{k: {"run": v, "egress_checks": egress["check_launches"][k]}
                         for k, v in sha_launches.items()}}
+        if kind == "wire":
+            first["wire"] = {"pack_select": ps_launches, "verify_core": vc_launches}
         mbs = c["pack"]["microblocks"]
         ms = [m for _, _, _, m in calls]
         steps = [n for _, _, n, _ in calls]
@@ -2527,6 +2744,10 @@ def phase_leader(dev, pool) -> dict:
             "stem_run_calls": {n: len(v) for n, v in stem_s.items() if v},
             "stem_counts": stem_counts(r),
             **({"busy_share": share} if share is not None else {}),
+            **({"wire": {k: r["wire"][k] for k in (
+                "dgrams_sent", "net_rx_dgrams", "window", "rcvbuf", "handshake_ms",
+                "quic_txns_per_s", "legacy_txns_per_s")}} if kind == "wire"
+               else {}),
             "sha_launches_in_run": sha_launches, **egress})
     emit({"phase": "leader", "pool": TILES_POOL, "frags": LEADER_FRAGS, "lanes": B,
           "msg_width": W, "n_good": int(pool[2].sum()), "banks": 2, "checks": "exact",
@@ -2589,11 +2810,14 @@ def phase_configure(t_start: float) -> None:
 
 def run_multi(dev, batches, single_bloom, keeps, metrics, t_start) -> dict:
     """The phases of the multi-device layer and the tile pipelines; -> the
-    leader's first run's kernel launches (phase_leader)."""
+    leader's first run's kernel launches (phase_leader), with the wire
+    runs' launches under "wire"."""
     phase_dist_step(dev, batches, single_bloom, keeps, metrics)
     phase_pool(dev, batches)
-    pool = phase_tiles()
+    pool, survivors = phase_tiles()
+    wire_launches = phase_wire(pool, survivors)
     launches = phase_leader(dev, pool)
+    launches["wire"]["verify_core_ingress"] = wire_launches["verify_core"]
     phase_bench()
     phase_configure(t_start)
     return launches
@@ -2970,6 +3194,7 @@ def run(dev) -> dict:
     phase_hmac(dev)
     leader_launches = run_multi(dev, batches, bloom, keeps, metrics, t_start)
     ps_row["launches"] = leader_launches["pack_select"]
+    ps_row["wire_leader_launches"] = leader_launches["wire"]["pack_select"]
     for row in rest:
         row["leader_launches"] = leader_launches[row["name"]]
 
@@ -2988,6 +3213,10 @@ def run(dev) -> dict:
         "ms": ms[name], "plain_ms": ms[name + "_plain"],
         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
         "library_ms": None,
+        **({"wire_launches": {
+            "ingress": leader_launches["wire"]["verify_core_ingress"],
+            "leader": leader_launches["wire"]["verify_core"]}}
+           if name == "verify_core" else {}),
     } for name, file, where, n, err in rows] + rest + [ps_row]})
     print(nvidia_smi_line(), flush=True)
     return {"ok": True, "device": {"platform": "gpu",

@@ -6,10 +6,11 @@ cycle, `Tile.manual_credits`), the native stem's branch
 (`run_loop(stem="native")`: a tile's `native_handler` runs whole bursts in
 one GIL-released fdt_stem_run call, with `_arm_stem_trace` and
 `_stem_apply`), the per-link latency attribution and the span-event trace
-points, and the post-HALT `drain_straggler_ins`.  The hooks of modules
-the port does not have yet (fault injection and its consult points, the
-run-loop profiler, elastic shard maps and the stem's epoch watch) are
-left out; they come back with those modules.
+points, the post-HALT `drain_straggler_ins`, and the topology-wide
+shared regions (`MuxCtx.shared`, `Tile.shared_wksp_footprints`).  The
+hooks of modules the port does not have yet (fault injection and its
+consult points, the run-loop profiler, elastic shard maps and the stem's
+epoch watch) are left out; they come back with those modules.
 
 Reference model: src/disco/mux/fd_mux.c:90-707 — a loop interleaving
 housekeeping events (heartbeat, flow-control publish/receive, metrics
@@ -232,6 +233,11 @@ class MuxCtx:
         key = f"{self.name}_{name}"
         if self.wksp is not None:
             return self.wksp.alloc(key, footprint)
+        return self._local_alloc(key, footprint)
+
+    def _local_alloc(self, key: str, footprint: int) -> np.ndarray:
+        """Process-local fallback buffer for workspace-less ctx
+        (standalone tile tests): idempotent by key, footprint-checked."""
         buf = self._local_allocs.get(key)
         if buf is None:
             buf = self._local_allocs[key] = np.zeros(footprint, dtype=np.uint8)
@@ -241,6 +247,21 @@ class MuxCtx:
                 f"existing {len(buf)}"
             )
         return buf
+
+    def shared(self, name: str, footprint: int) -> np.ndarray:
+        """A topology-WIDE shared region: every tile asking for `name`
+        gets the SAME memory (the QUIC tile's `shed` region), unlike
+        alloc(), which is namespaced per tile.
+
+        The region must be declared via Tile.shared_wksp_footprints()
+        so the topology budgets and allocates it once at build;
+        Workspace.alloc is idempotent by name, so this call resolves that
+        allocation.  Standalone ctx (no workspace): a process-local
+        buffer, so direct tile tests still run."""
+        key = f"shared_{name}"
+        if self.wksp is not None:
+            return self.wksp.alloc(key, footprint)
+        return self._local_alloc(key, footprint)
 
     def publish(self, sigs, rows=None, szs=None, ctls=None, tsorigs=None) -> int:
         """Publish to every out link (the common single-out case)."""
@@ -275,6 +296,13 @@ class Tile:
         """Bytes of shared-workspace state this tile allocates in on_boot
         (beyond links/metrics, which the topology accounts for itself)."""
         return 0
+
+    def shared_wksp_footprints(self) -> dict[str, int]:
+        """Topology-WIDE shared regions this tile joins via
+        ctx.shared(name, footprint): {name: footprint}.  The topology
+        allocates each named region ONCE at build (tiles naming the same
+        region must agree on its footprint)."""
+        return {}
 
     def on_boot(self, ctx: MuxCtx) -> None: ...
 

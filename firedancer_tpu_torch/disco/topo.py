@@ -195,8 +195,26 @@ class Topology:
             wide_hists=base.wide_hists + link_hists,
         )
 
+    def _shared_regions(self) -> dict[str, int]:
+        """Topology-wide shared regions declared by tiles
+        (Tile.shared_wksp_footprints): {name: footprint}.  Tiles naming
+        the same region must agree on its size."""
+        shared: dict[str, int] = {}
+        for name, ts in self.tiles.items():
+            for nm, fp in ts.tile.shared_wksp_footprints().items():
+                if nm in shared and shared[nm] != fp:
+                    raise ValueError(
+                        f"shared region {nm!r}: tile {name!r} declares "
+                        f"footprint {fp} but another tile declared "
+                        f"{shared[nm]}"
+                    )
+                shared[nm] = fp
+        return shared
+
     def _footprint(self) -> int:
         total = 4096
+        for fp in self._shared_regions().values():
+            total += fp + 256
         for ls in self.links.values():
             total += R.MCache.footprint(ls.depth) + 256
             if ls.mtu:
@@ -215,6 +233,10 @@ class Topology:
         if runtime not in (None, "thread"):
             raise _not_ported(f"runtime={runtime!r}")
         self.wksp = R.Workspace(self._footprint(), name=self.name)
+        # topology-wide shared regions, once each (MuxCtx.shared resolves
+        # them by name)
+        for nm, fp in sorted(self._shared_regions().items()):
+            self.wksp.alloc(f"shared_{nm}", fp)
         for ls in self.links.values():
             self._mcaches[ls.name] = R.MCache.create(
                 self.wksp, f"mc_{ls.name}", ls.depth

@@ -10,7 +10,10 @@ ingress(...)        -> the ingress tile pipeline over real rings in the
                        thread runtime: synth -> verify (on the card) ->
                        dedup -> sink, run to completion; the tiles'
                        counters, the sink's survivors and the latencies.
-                       stem="native" runs dedup on the native stem.
+                       front="wire" puts net -> quic (legacy UDP and QUIC
+                       over real loopback sockets) in the synth's place.
+                       stem="native" runs dedup (and net) on the native
+                       stem.
 leader(...)         -> the leader pipeline: synth -> verify -> dedup ->
                        pack (its select on the card) -> bank x n -> poh ->
                        shred <-> sign -> store, with a recording sink
@@ -18,10 +21,12 @@ leader(...)         -> the leader pipeline: synth -> verify -> dedup ->
                        every slot that holds a mixin is stored; the tiles'
                        counters, the microblocks the sinks received, the
                        drained pack engine, the stored blocks and shreds
-                       and the rates.  stem="native" runs dedup, pack,
-                       poh and shred on the native stem.
+                       and the rates.  front="wire" as in ingress.
+                       stem="native" runs net, dedup, pack, poh and shred
+                       on the native stem.
 
     python -c "from firedancer_tpu_torch import entry; entry.dryrun_multichip(8, device='cpu')"
+    python -c "from firedancer_tpu_torch import entry; print(entry.ingress(front='wire', device='cpu', max_lanes=32, idle_sleep_s=5e-3)['wire'])"
 """
 
 from __future__ import annotations
@@ -56,33 +61,184 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
 #: the ingress topology's tiles, producer first
 INGRESS_TILES = ("synth", "verify", "dedup", "sink")
 
+#: the wire front's datagram rings' depth past the run's transactions (the
+#: QUIC handshakes, acks and the server's responses)
+WIRE_SLACK = 4096
 
-def _front(topo, pool, total, repeat, max_lanes, device, out_link):
-    """Declare synth -> verify -> dedup -> `out_link` on `topo` (every ring
-    holds the run); -> (synth, verify, pool, total).  The verify tile is
-    built first, so no pool is signed for a run that cannot start."""
+
+def _depth(n: int) -> int:
+    """The smallest power of two >= n (at least 2): a ring that holds n."""
+    return 1 << max(n - 1, 1).bit_length()
+
+
+def raw_txns(pool) -> list[bytes]:
+    """The pool's transactions as they go on the wire (each row's bytes up
+    to its trailer)."""
+    from .tiles import wire
+
+    rows, szs, _good = pool
+    tr = wire.parse_trailers(rows, szs.astype(np.int64))
+    return [rows[i, : tr["txn_sz"][i]].tobytes() for i in range(len(rows))]
+
+
+class _Front:
+    """A declared front: `tiles` (its tile names, producer first), `in_link`
+    (verify's in-link), `tags` (the pool's dedup tags), `total` (txns it
+    feeds verify), `begin()` (called once every tile is in RUN) and
+    `tick()` (called at every poll); a wire front also its `traffic`, its
+    QUIC tile and, once begun, the bound `addrs`."""
+
+    def __init__(self, tiles, in_link, tags, total, begin, tick):
+        self.tiles, self.in_link, self.tags, self.total = tiles, in_link, tags, total
+        self.begin, self.tick = begin, tick
+        self.traffic = self.quic = self.addrs = None
+
+
+def _front(topo, pool, total, repeat, max_lanes, device, out_link, *,
+           front="synth", traffic=None, identity_secret=None, release=None):
+    """Declare the front -> verify -> dedup -> `out_link` on `topo`; -> (a
+    _Front, the VerifyTile, pool).  The verify tile is built first, so no
+    pool is signed for a run that cannot start.
+
+    front="synth": synth -> verify (every ring holds the run; the synth
+    gets `total` frags, or release()'s budget read again at every poll).
+    front="wire": net -> quic(via_net) -> verify, with quic's responses on
+    quic_net back to net (firedancer_tpu/app/config.py:307-319), bound to
+    127.0.0.1 ephemeral ports; `traffic` (a tiles/bench.WireTraffic) sends
+    the transactions once every tile is in RUN, and its poll is fed the
+    QUIC tile's rx_txns_udp."""
     from .tiles import wire
     from .tiles.dedup import DedupTile
     from .tiles.synth import SynthTile, make_txn_pool
     from .tiles.verify import VerifyTile
 
+    if front not in ("synth", "wire"):
+        raise ValueError(f"front {front!r}: synth | wire")
     verify = VerifyTile(msg_width=1232, max_lanes=max_lanes, pad_full=True,
                         pre_dedup=False, device=device)
     if pool is None:
         pool = make_txn_pool(24, corrupt_frac=0.3, seed=17)
     rows, szs, _good = pool
-    total = 2 * len(rows) if total is None else total
-    depth = 1 << max(total - 1, 1).bit_length()
-    # the synth publishes nothing until every tile is in RUN (its total is
-    # set by _run), so the boot (the verify tile's warm-up) is not timed
-    synth = SynthTile(rows, szs, total=0, repeat=repeat)
-    for ln in ("synth_verify", "verify_dedup", out_link):
+    if front == "synth":
+        total = 2 * len(rows) if total is None else total
+        depth = _depth(total)
+        # the synth publishes nothing until every tile is in RUN (its total
+        # is set by begin), so the boot (the verify tile's warm-up) is not
+        # timed
+        synth = SynthTile(rows, szs, total=0, repeat=repeat)
+        topo.link("synth_verify", depth=depth, mtu=wire.LINK_MTU)
+        topo.tile(synth, outs=["synth_verify"])
+
+        def begin():
+            synth.total = total if release is None else release()
+
+        def tick():
+            if release is not None:
+                synth.total = release()
+
+        fr = _Front(("synth",), "synth_verify", synth.tags, total, begin, tick)
+    else:
+        from .tiles.bench import WireTraffic
+        from .tiles.net import NET_MTU, NetTile
+        from .tiles.quic import QuicIngressTile
+
+        if release is not None:
+            raise ValueError("paced runs take the synth front")
+        if traffic is None:
+            raws = raw_txns(pool)
+            traffic = WireTraffic(raws * 2, raws, n_clients=2)
+        if identity_secret is None:
+            identity_secret = np.random.default_rng(IDENTITY_SEED).integers(
+                0, 256, 32, np.uint8).tobytes()
+        total = traffic.txns
+        depth = _depth(total)
+        net = NetTile(quic_addr=("127.0.0.1", 0), udp_addr=("127.0.0.1", 0))
+        quic = QuicIngressTile(identity_secret, via_net=True)
+        topo.link("net_quic", depth=_depth(total + WIRE_SLACK), mtu=NET_MTU)
+        topo.link("quic_net", depth=WIRE_SLACK, mtu=NET_MTU)
+        topo.link("quic_verify", depth=depth, mtu=wire.LINK_MTU)
+        topo.tile(net, ins=[("quic_net", True)], outs=["net_quic"])
+        topo.tile(quic, ins=[("net_quic", True)], outs=["quic_verify", "quic_net"])
+        mq = []
+
+        def begin():
+            import socket
+
+            mq.append(topo.metrics("quic"))
+            rcvbuf = net.udp_sock.sock.getsockopt(socket.SOL_SOCKET,
+                                                  socket.SO_RCVBUF)
+            fr.addrs = {"quic": net.quic_addr, "udp": net.udp_addr}
+            traffic.start(fr.addrs, rcvbuf)
+
+        def tick():
+            traffic.poll(mq[0].counter("rx_txns_udp"))
+
+        # the pool's dedup tags, as the synth front computes them
+        fr = _Front(("net", "quic"), "quic_verify", SynthTile(rows, szs).tags, total,
+                    begin, tick)
+        fr.traffic, fr.quic = traffic, quic
+    for ln in ("verify_dedup", out_link):
         topo.link(ln, depth=depth, mtu=wire.LINK_MTU)
-    topo.tile(synth, outs=["synth_verify"])
-    topo.tile(verify, ins=[("synth_verify", True)], outs=["verify_dedup"])
+    topo.tile(verify, ins=[(fr.in_link, True)], outs=["verify_dedup"])
     topo.tile(DedupTile(depth=1 << 20), ins=[("verify_dedup", True)],
               outs=[out_link])
-    return synth, verify, pool, total
+    return fr, verify, pool
+
+
+#: seconds the wire front may go without progress before the run fails
+WIRE_STALL_S = 60.0
+
+#: the QUIC tile's counters a stalled wire run reports
+_QUIC_DROPS = ("parse_fail_txns", "shed_backlog", "drop_txn_rate", "shed_unstaked",
+               "drop_conn_cap", "drop_handshake_rate", "tx_eagain_drops")
+
+
+def _wire_done(topo, fr, marks) -> bool:
+    """The wire front's part of done(): the senders finished, net received
+    every datagram they sent and quic took in every transaction.  Marks
+    the moment the legacy transactions were all in; raises when neither
+    the senders nor the front moved for WIRE_STALL_S (a datagram lost on
+    the way, a transaction dropped)."""
+    import time
+
+    mn, mq = topo.metrics("net"), topo.metrics("quic")
+    now = time.perf_counter()
+    finished = fr.traffic.finished()
+    sent = fr.traffic.dgrams_sent
+    rx, udp, quic = (mn.counter("rx_dgrams"), mq.counter("rx_txns_udp"),
+                     mq.counter("rx_txns_quic"))
+    if udp >= len(fr.traffic.legacy):
+        marks.setdefault("legacy_in", now)
+    state = (finished, sent["legacy"], rx, udp, quic)
+    if marks.get("state") != state:
+        marks["state"], marks["moved"] = state, now
+    elif now - marks["moved"] > WIRE_STALL_S:
+        raise TimeoutError(
+            f"wire front stalled {WIRE_STALL_S} s: sent {sent}, net rx_dgrams "
+            f"{rx}, quic rx_txns_udp {udp} rx_txns_quic {quic} of {fr.total}, "
+            f"{ {k: mq.counter(k) for k in _QUIC_DROPS} }")
+    return (finished and rx >= sent["legacy"] + sent["quic"]
+            and udp + quic + mq.counter("parse_fail_txns") >= fr.total)
+
+
+def _wire_report(fr, counters, marks, t0) -> dict:
+    """The report's `wire` block."""
+    rep = fr.traffic.report()
+    n_legacy = len(fr.traffic.legacy)
+    cn, cq = counters["net"], counters["quic"]
+    return {
+        "addrs": fr.addrs,
+        **rep,
+        "net_rx_dgrams": cn["rx_dgrams"], "oversize_drops": cn["oversize_drops"],
+        "rx_txns_udp": cq["rx_txns_udp"], "rx_txns_quic": cq["rx_txns_quic"],
+        "conns_opened": cq["conns_opened"],
+        # distinct connections the server holds (conns_opened counts every
+        # connection id the server registers: a connection's own and the
+        # spare ones it offers once established)
+        "connections": len({id(c) for c in fr.quic.server.conns.values()}),
+        "legacy_txns_per_s": (n_legacy / (marks["legacy_in"] - t0)
+                              if "legacy_in" in marks else None),
+    }
 
 
 def _front_done(topo, total) -> bool:
@@ -108,25 +264,22 @@ def _stem_report(counters) -> dict:
     return {n: {k: c[k] for k in STEM_COUNTERS} for n, c in counters.items()}
 
 
-def _run(topo, synth, total, idle_sleep_s, max_lanes, done, tiles, what,
-         release=None):
-    """Start `topo`, release the synth once every tile is in RUN, wait for
-    done(), halt; -> (the release's perf_counter, seconds from the release
-    to done, every tile's counters).  The synth gets all `total` frags at
-    once, or, with `release`, release()'s budget, read again at every poll."""
+def _run(topo, fr, idle_sleep_s, max_lanes, done, tiles, what):
+    """Start `topo`, begin the front once every tile is in RUN, wait for
+    done() (ticking the front at every 1 ms poll), halt; -> (the begin's
+    perf_counter, seconds from the begin to done, every tile's counters)."""
     import time
 
     topo.start(batch_max=max_lanes, idle_sleep_s=idle_sleep_s)
     t0 = time.perf_counter()
-    synth.total = total if release is None else release()
+    fr.begin()
     deadline = t0 + 600.0
     while not done():
         topo.poll_failure()
         if time.perf_counter() > deadline:
             raise TimeoutError(f"{what}: not done after 600 s")
         time.sleep(1e-3)
-        if release is not None:
-            synth.total = release()
+        fr.tick()
     dt = time.perf_counter() - t0
     topo.halt()
     topo.poll_failure()
@@ -159,11 +312,23 @@ def ingress(
     idle_sleep_s: float = 50e-6,
     device=None,
     stem: str | None = None,
+    front: str = "synth",
+    traffic=None,
+    identity_secret: bytes | None = None,
 ) -> dict:
     """Build synth -> verify -> dedup -> sink in the thread runtime, stream
     `total` frags (default: two passes over the pool), each pool entry
     `repeat` times back to back, and run until every frag has left the
     pipeline; -> a report (see below).
+
+    front="wire" puts net -> quic -> verify in the synth's place (see
+    _front): the QUIC tile terminates TLS with `identity_secret` (None: 32
+    bytes from IDENTITY_SEED), and `traffic` (a tiles/bench.WireTraffic;
+    None: the pool's raw txns twice as legacy datagrams and once over two
+    QUIC connections from a spawned child) gets the bound addresses and
+    sends; total and repeat do not apply.  The run ends once the senders
+    finished, net received every datagram and every frag left the
+    pipeline.
 
     pool: (rows, szs, good) from tiles.synth.make_txn_pool, by default
     tests/test_pipeline.py's (24 txns, 30 % corrupted, seed 17).  The
@@ -184,32 +349,45 @@ def ingress(
     verify hop's p99 (µs, from the run loop's link hists), the verify
     tile's `landed_stamps` (pool_seq, domain, lanes, dispatch and land
     stamps in µs), and `stem`: the mode and every tile's stem_engaged,
-    stem_frags, py_frags and py_credit."""
+    stem_frags, py_frags and py_credit.  A wire run adds `wire`: the bound
+    `addrs`, the datagrams sent (legacy, quic), the blaster's window, the
+    granted SO_RCVBUF and the truesize it was divided by, each QUIC
+    client's report and handshake ms, QUIC txns/s (client side: first txn
+    sent to the last packet acked), net's rx_dgrams and oversize_drops,
+    quic's rx_txns_udp, rx_txns_quic and conns_opened, and legacy txns/s
+    (from the begin to quic holding every legacy txn)."""
     from .disco.topo import Topology
     from .tiles import wire
     from .tiles.sink import SinkTile
 
     topo = Topology(stem=stem)
-    synth, verify, pool, total = _front(topo, pool, total, repeat, max_lanes,
-                                        device, "dedup_sink")
+    fr, verify, pool = _front(topo, pool, total, repeat, max_lanes, device,
+                              "dedup_sink", front=front, traffic=traffic,
+                              identity_secret=identity_secret)
+    total = fr.total
     rows, szs, good = pool
     sink = SinkTile(record=True)
     topo.tile(sink, ins=[("dedup_sink", True)])
+    marks: dict = {}
     try:
         topo.build()
         md, ms = topo.metrics("dedup"), topo.metrics("sink")
 
         def done() -> bool:
+            if front == "wire" and not _wire_done(topo, fr, marks):
+                return False
             return (_front_done(topo, total)
                     and ms.counter("in_frags") >= md.counter("out_frags"))
 
-        _t0, dt, counters = _run(topo, synth, total, idle_sleep_s, max_lanes,
-                                 done, INGRESS_TILES, "ingress")
+        t0, dt, counters = _run(topo, fr, idle_sleep_s, max_lanes, done,
+                                fr.tiles + INGRESS_TILES[1:], "ingress")
         lat = _percentiles(ms, "e2e_us_dedup_sink", "e2e")
-        hv = _percentiles(topo.metrics("verify"), "svc_us_synth_verify", "verify_hop")
+        hv = _percentiles(topo.metrics("verify"), f"svc_us_{fr.in_link}", "verify_hop")
         lat.update({k: v for k, v in hv.items() if k.endswith("p99_us")})
     finally:
         topo.close()
+        if front == "wire":
+            fr.traffic.close()
     # the sink has halted: its records are final
     survivors = sink.all_sigs()
     payloads = (np.concatenate(sink.payloads) if sink.payloads
@@ -218,11 +396,12 @@ def ingress(
              else np.zeros(0, np.uint16))
     return {
         "counters": counters,
-        "pool": {"rows": rows, "szs": szs, "good": good, "tags": synth.tags},
+        "pool": {"rows": rows, "szs": szs, "good": good, "tags": fr.tags},
         "survivors": survivors, "payloads": payloads, "sizes": sizes,
         "total": total, "seconds": dt, "txns_per_s": total / dt, **lat,
         "landed_stamps": list(verify.landed_stamps),
         "stem": {"mode": stem or "python", "tiles": _stem_report(counters)},
+        **({"wire": _wire_report(fr, counters, marks, t0)} if front == "wire" else {}),
     }
 
 
@@ -254,6 +433,9 @@ def leader(
     blockstore_path: str | None = None,
     device=None,
     stem: str | None = None,
+    front: str = "synth",
+    traffic=None,
+    identity_secret: bytes | None = None,
 ) -> dict:
     """Build synth -> verify -> dedup -> pack -> bank x n_banks -> poh ->
     shred <-> sign -> store in the thread runtime
@@ -269,8 +451,10 @@ def leader(
     those slots; -> a report (see below).
 
     The front is `ingress`'s (same pool default, VerifyTile, DedupTile,
-    rings that hold the run).  Pack is PackTile(n_banks, depth 4096,
-    mb_inflight 1, 2 ms microblock cadence, txn_limit 31, cu_limit
+    rings that hold the run; front="wire", traffic and identity_secret as
+    there, and then paced is refused and the report carries `wire`).  Pack
+    is PackTile(n_banks, depth 4096, mb_inflight 1, 2 ms microblock
+    cadence, txn_limit 31, cu_limit
     1,500,000, 400 ms slot; scan_limit 1024 over 1024 account bits) with
     its select on `device` when pack_device_select (None: the CUDA card,
     through the pack_select kernel).  The banks are fee-only BankTiles.
@@ -286,8 +470,9 @@ def leader(
     shorten it).  device=None raises "no CUDA device" on a host without
     one; "cpu" runs the plain versions (tests).  stem: the run loop's
     inner loop for every tile, "python" (None) or "native"; under "native"
-    dedup, pack (with pack_device_select in its insert-only shape), poh and
-    shred run on the native stem and the other tiles keep the Python loop.
+    net, dedup, pack (with pack_device_select in its insert-only shape), poh
+    and shred run on the native stem and the other tiles keep the Python
+    loop.
     Counters land once a burst on the stem, so done() reads them up to one
     burst late; it never reads them early.
 
@@ -333,9 +518,21 @@ def leader(
         0, 256, 32, np.uint8).tobytes()
     path = blockstore_path or tempfile.mkdtemp(prefix="fdt_blockstore_")
     topo = Topology(stem=stem)
+    window = PACK_DEPTH - n_banks * PACK_MB_INFLIGHT * PACK_TXN_LIMIT
+
+    def release() -> int:
+        gone = (mv.counter("verify_fail_txns") + mv.counter("dedup_drop_txns")
+                + md.counter("dup_txns") + mp.counter("insert_rejected")
+                + sum(m.counter("executed_txns") for m in mbanks))
+        return min(total, gone + window)
+
+    fr = None
     try:
-        synth, verify, pool, total = _front(topo, pool, total, repeat, max_lanes,
-                                            dev, "dedup_pack")
+        fr, verify, pool = _front(topo, pool, total, repeat, max_lanes, dev,
+                                  "dedup_pack", front=front, traffic=traffic,
+                                  identity_secret=identity_secret,
+                                  release=release if paced else None)
+        total = fr.total
         bank_ring = 1 << max(64, 4 * PACK_MB_INFLIGHT).bit_length()
         for i in range(n_banks):
             topo.link(f"pack_bank{i}", depth=bank_ring, mtu=MB_MTU)
@@ -363,7 +560,7 @@ def leader(
         topo.tile(SignTile(identity, roles=[ROLE_SHRED]), ins=[("shred_sign", True)],
                   outs=["sign_shred"])
         topo.tile(store, ins=[("shred_store", True)])
-        tiles = ("synth", "verify", "dedup", "pack",
+        tiles = (*fr.tiles, "verify", "dedup", "pack",
                  *(f"bank{i}" for i in range(n_banks)),
                  *(f"sink{i}" for i in range(n_banks)),
                  "poh", "shred", "sign", "store")
@@ -375,15 +572,10 @@ def leader(
 
         marks = {}
         mv = topo.metrics("verify")
-        window = PACK_DEPTH - n_banks * PACK_MB_INFLIGHT * PACK_TXN_LIMIT
-
-        def release() -> int:
-            gone = (mv.counter("verify_fail_txns") + mv.counter("dedup_drop_txns")
-                    + md.counter("dup_txns") + mp.counter("insert_rejected")
-                    + sum(m.counter("executed_txns") for m in mbanks))
-            return min(total, gone + window)
 
         def done() -> bool:
+            if front == "wire" and not _wire_done(topo, fr, marks):
+                return False
             if not _front_done(topo, total):
                 return False
             marks.setdefault("front", time.perf_counter())
@@ -408,12 +600,12 @@ def leader(
             return (poh.slot > last
                     and mstore.counter("completed_slots") >= last + 1)
 
-        t0, dt, counters = _run(topo, synth, total, idle_sleep_s, max_lanes,
-                                done, tiles, "leader", release if paced else None)
+        t0, dt, counters = _run(topo, fr, idle_sleep_s, max_lanes, done, tiles,
+                                "leader")
         lat = {}
         for i, m in enumerate(msinks):
             lat.update(_percentiles(m, f"e2e_us_bank{i}_poh", f"e2e_sink{i}"))
-        hv = _percentiles(topo.metrics("verify"), "svc_us_synth_verify", "verify_hop")
+        hv = _percentiles(topo.metrics("verify"), f"svc_us_{fr.in_link}", "verify_hop")
         lat.update({k: v for k, v in hv.items() if k.endswith("p99_us")})
         # the store has halted: its files are final
         bs = store.store
@@ -423,6 +615,8 @@ def leader(
                       "shreds": {s: bs.shreds(s) for s in stored}}
     finally:
         topo.close()
+        if front == "wire" and fr is not None:
+            fr.traffic.close()
         if blockstore_path is None:
             shutil.rmtree(path, ignore_errors=True)
     eng = pack.engine
@@ -440,7 +634,7 @@ def leader(
     return {
         "counters": counters,
         "pool": {"rows": pool[0], "szs": pool[1], "good": pool[2],
-                 "tags": synth.tags},
+                 "tags": fr.tags},
         "microblocks": microblocks,
         "microblock_payloads": payloads,
         "pack_engine": {
@@ -460,6 +654,7 @@ def leader(
                        "outq": shred.outq_len},
         "blockstore": blockstore,
         "stem": {"mode": stem or "python", "tiles": _stem_report(counters)},
+        **({"wire": _wire_report(fr, counters, marks, t0)} if front == "wire" else {}),
     }
 
 

@@ -6,9 +6,9 @@
  * (fdt_mb_encode, fdt_mb_decode) and the native stem's after-credit
  * scheduling pass (sched_sort, fdt_pack_sched), unchanged.  Left out: the
  * hashed-bitset select/release (fdt_pack_select, fdt_pack_release; the
- * engine no longer calls them) and the burst UDP I/O (fdt_udp_recv_burst,
- * fdt_udp_send_burst), which belong to the net tile.  See fdt_pack.h for
- * the design notes. */
+ * engine no longer calls them).  The burst UDP I/O (fdt_udp_recv_burst,
+ * fdt_udp_send_burst) lives in the port's fdt_net.c, beside the net
+ * tile's paths that use it.  See fdt_pack.h for the design notes. */
 
 #include "fdt_pack.h"
 

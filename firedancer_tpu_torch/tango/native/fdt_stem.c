@@ -1,5 +1,5 @@
 /* fdt_stem.c — the port's copy of firedancer_tpu/tango/native/fdt_stem.c
- * without the bank and net handlers and the elastic epoch watch.
+ * without the bank handler and the elastic epoch watch.
  * Implementation.  See fdt_stem.h for the design notes and reference
  * citations.  Original implementation: the burst loop composes
  * the SAME primitive ring ops the Python loop uses (fdt_mcache_drain /
@@ -13,6 +13,7 @@
 
 #include "fdt_stem.h"
 
+#include "fdt_net.h"
 #include "fdt_pack.h"
 #include "fdt_poh.h"
 #include "fdt_shred.h"
@@ -230,7 +231,8 @@ void fdt_stem_out_emit( uint64_t * o, uint64_t sig,
 }
 
 /* Publish a frag whose payload the caller ALREADY placed in the out
-   dcache (fdt_pack_sched's encode-in-place) — same metadata/trace body,
+   dcache (fdt_net_rx's recvmmsg-into-dcache rows, fdt_pack_sched's
+   encode-in-place) — same metadata/trace body,
    no copy.  Every native publish routes through one of these two entry
    points, so per-frag tspub stamping and span propagation cannot be
    bypassed. */
@@ -604,6 +606,20 @@ static int64_t h_poh( stem_t * st, int64_t ii, fdt_frag_t const * f,
 /* shred — batch append (ins[0]) / signature patch (ins[1]); a negative
    return from either body names a frag that needs the Python path
    (slot-boundary shredding, batch spill, a Python-held pending set). */
+/* net — tx burst (fdt_net.c): sendmmsg straight from the in dcache; a
+   destination missing from the route cache hands back to Python (the
+   IpStack lookup + fdt_net_route_put slow path). */
+static int64_t h_net( stem_t * st, int64_t ii, fdt_frag_t const * f,
+                      int64_t n ) {
+  uint8_t const * in_dc = (uint8_t const *)in_blk( st, ii )[ I_DCACHE ];
+  int64_t r = fdt_net_tx( st->args, in_dc, f, n, st->ctrs );
+  if( r < 0 ) {
+    st->need_python = 1;
+    return ~r;
+  }
+  return r;
+}
+
 static int64_t h_shred( stem_t * st, int64_t ii, fdt_frag_t const * f,
                         int64_t n ) {
   uint8_t const * in_dc = (uint8_t const *)in_blk( st, ii )[ I_DCACHE ];
@@ -709,13 +725,14 @@ int64_t fdt_stem_run( uint64_t * cfg, int64_t max_frags ) {
   st.need_python = 0;
   if( st.n_ins > FDT_STEM_MAX_INS || st.n_outs > FDT_STEM_MAX_OUTS )
     return -1;
-  /* the handlers and hooks this build carries; the bank and net ids
-     (and any unknown id) are refused before anything is touched */
+  /* the handlers and hooks this build carries; the bank id (and any
+     unknown id) is refused before anything is touched */
   if( st.handler != FDT_STEM_H_DEDUP && st.handler != FDT_STEM_H_PACK &&
-      st.handler != FDT_STEM_H_POH && st.handler != FDT_STEM_H_SHRED )
+      st.handler != FDT_STEM_H_POH && st.handler != FDT_STEM_H_SHRED &&
+      st.handler != FDT_STEM_H_NET )
     return -1;
   if( st.ac != 0 && st.ac != FDT_STEM_AC_PACK && st.ac != FDT_STEM_AC_POH &&
-      st.ac != FDT_STEM_AC_SHRED )
+      st.ac != FDT_STEM_AC_SHRED && st.ac != FDT_STEM_AC_NET )
     return -1;
   if( max_frags > st.cap ) max_frags = st.cap;
 
@@ -823,6 +840,9 @@ int64_t fdt_stem_run( uint64_t * cfg, int64_t max_frags ) {
       case FDT_STEM_H_SHRED:
         handled = h_shred( &st, i, buf, n );
         break;
+      case FDT_STEM_H_NET:
+        handled = h_net( &st, i, buf, n );
+        break;
       default:
         tls_trace = 0;
         tls_cfg = 0;
@@ -908,6 +928,11 @@ done:
     case FDT_STEM_AC_SHRED:
       fdt_shred_drain( st.ac_args, cfg + OUT0, st.n_outs, st.cap,
                        (uint64_t)st.tspub, st.ctrs );
+      break;
+    case FDT_STEM_AC_NET:
+      if( gate )
+        fdt_net_rx( st.ac_args, cfg + OUT0, st.n_outs, st.cap,
+                    (uint64_t)st.tspub, st.ctrs );
       break;
     default:
       break;

@@ -1,11 +1,12 @@
 /* fdt_stem.h — GIL-released native inner loop for data-plane tiles.
  *
  * The port's copy of firedancer_tpu/tango/native/fdt_stem.h, trimmed to
- * the handlers the port's leader path can use: dedup, pack (insert,
- * completions and the fdt_pack_sched after-credit hook), PoH and shred.
- * The bank handler (fdt_bank_pipeline over a shared account table) and
- * the net handler are not carried: their ids stay reserved and
- * fdt_stem_run rejects a config block that names them (returns -1).  The
+ * the handlers the port's ingress and leader paths can use: dedup, pack
+ * (insert, completions and the fdt_pack_sched after-credit hook), PoH,
+ * shred and net (fdt_net.c: the tx burst and the rx after-credit hook).
+ * The bank handler (fdt_bank_pipeline over a shared account table) is not
+ * carried: its id stays reserved and fdt_stem_run rejects a config block
+ * that names it (returns -1).  The
  * elastic epoch watch (cfg words 14/15) is not carried either; the words
  * stay in the layout, unused.
  *
@@ -42,6 +43,8 @@
  *     (pool full) bails to Python before mutating anything.  Completion
  *     rings (ins[1..]) release their microblocks natively.
  *   poh / shred — the block-egress bodies of fdt_poh.c / fdt_shred.c.
+ *   net — fdt_net.c: tx sendmmsg straight from the in dcache, rx
+ *     recvmmsg straight into the out dcache as the after-credit hook.
  *
  * A handler may also return fewer frags than drained WITHOUT raising
  * the python flag (journal-capacity chunking); the stem rewinds the in
@@ -63,9 +66,9 @@
 
 #define FDT_STEM_MAGIC 0xf17eda2ce57e0001UL
 
-/* handler ids (cfg word 1) — the JAX package's numbering.  BANK and NET
-   are reserved: the port carries no handler for them, and fdt_stem_run
-   rejects a config block that names one. */
+/* handler ids (cfg word 1) — the JAX package's numbering.  BANK is
+   reserved: the port carries no handler for it, and fdt_stem_run rejects
+   a config block that names it. */
 #define FDT_STEM_H_DEDUP 1
 #define FDT_STEM_H_BANK 2
 #define FDT_STEM_H_PACK 3
@@ -77,8 +80,7 @@
    call at the burst boundary — the native analog of the Python loop's
    tile.after_credit slot, which is where producer tiles generate work.
    The hook publishes through the SAME out blocks the frag handlers use
-   and must re-read per-out cr_avail itself.  NET is reserved (rejected,
-   as above). */
+   and must re-read per-out cr_avail itself. */
 #define FDT_STEM_AC_PACK 1
 #define FDT_STEM_AC_POH 2
 #define FDT_STEM_AC_SHRED 3
@@ -193,7 +195,8 @@
 /* Layout self-description so the Python side can assert against drift. */
 uint64_t fdt_stem_cfg_words( void );
 
-/* ---- shared out-block primitives (fdt_pack.c / fdt_poh.c / fdt_shred.c)
+/* ---- shared out-block primitives (fdt_pack.c / fdt_poh.c / fdt_shred.c /
+ * fdt_net.c)
  *
  * The after-credit hooks and the block-egress handlers live in their own
  * translation units but publish through the stem's out blocks; these
@@ -214,7 +217,8 @@ void fdt_stem_out_emit( uint64_t * ob, uint64_t sig,
                         int64_t sig_cap );
 
 /* Publish a frag whose payload the caller already placed in the out
-   dcache at `chunk` (encode-in-place) — the same metadata/trace body as
+   dcache at `chunk` (recvmmsg-into-dcache rows, encode-in-place) — the
+   same metadata/trace body as
    fdt_stem_out_emit without the copy.  These two are the ONLY native
    publish entry points: publishing around them would bypass per-frag
    tspub stamping and span propagation. */

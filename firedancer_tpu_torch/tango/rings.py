@@ -6,12 +6,12 @@ runtime needs: `Workspace`, `MCache`, `DCache`, `FSeq`, `CNC`, `TCache`,
 `trace_*` helpers and the native stem (`StemSpec`, `Stem`, the `STEM_*`
 ids).  The library is built from the port's own copies of fdt_tango.c,
 fdt_sha512.c, fdt_sha256.c, fdt_trace.c, fdt_pack.c, fdt_stem.c,
-fdt_poh.c and fdt_shred.c (tango/native/) by utils/cbuild.py into the
-git-ignored _build/, at first use, and loaded with ctypes.CDLL, so every
+fdt_poh.c, fdt_shred.c and fdt_net.c (tango/native/) by utils/cbuild.py
+into the git-ignored _build/, at first use, and loaded with ctypes.CDLL, so every
 call releases the GIL; `_load` injects the SHA-512 and SHA-256 tables and
 the pack cost model's constants into this library's own statics.  The
-stem's bank and net handlers, the ABI digest and the process runtime's
-workspace attach are not ported yet.
+stem's bank handler, the ABI digest and the process runtime's workspace
+attach are not ported yet.
 
 Objects live in caller-provided buffers: a numpy array for in-process
 topologies, or an mmap of a /dev/shm file (`Workspace(name=...)`, under the
@@ -53,6 +53,7 @@ _NATIVE_SOURCES = [
     _HERE / "native" / "fdt_stem.c",
     _HERE / "native" / "fdt_poh.c",
     _HERE / "native" / "fdt_shred.c",
+    _HERE / "native" / "fdt_net.c",
 ]
 
 #: the prefix of named workspaces' /dev/shm files (firedancer_tpu's use
@@ -170,6 +171,14 @@ def _load() -> ct.CDLL:
         "fdt_shred_entries": (i64, [vp, vp, vp, i64, vp]),
         "fdt_shred_sign": (i64, [vp, vp, vp, i64, vp]),
         "fdt_shred_drain": (i64, [vp, vp, i64, i64, u64, vp]),
+        # the net tile's datagram paths (fdt_net.c): the recvmmsg /
+        # sendmmsg bursts, the tx body and rx hook fdt_stem_run
+        # dispatches, and the route cache's slow-path insert
+        "fdt_udp_recv_burst": (i64, [i32, vp, i64, vp, i64, i64]),
+        "fdt_udp_send_burst": (i64, [i32, vp, i64, vp, i64, vp]),
+        "fdt_net_tx": (i64, [vp, vp, vp, i64, vp]),
+        "fdt_net_rx": (i64, [vp, vp, i64, i64, u64, vp]),
+        "fdt_net_route_put": (None, [vp, u32, i64]),
     })
     # the SHA-512 constant tables are globals of THIS library (a second
     # copy of the ring library in the process keeps its own): inject them
@@ -782,18 +791,19 @@ def trace_read_clock(block: np.ndarray) -> int:
 # handler with a StemSpec (Tile.native_handler).
 
 #: handler ids (fdt_stem.h FDT_STEM_H_*, the JAX package's numbering).
-#: The port carries no bank or net handler: a StemSpec naming one raises.
+#: The port carries no bank handler: a StemSpec naming it raises.
 STEM_H_DEDUP, STEM_H_BANK, STEM_H_PACK = 1, 2, 3
 STEM_H_POH, STEM_H_SHRED, STEM_H_NET = 4, 5, 6
 
 #: after-credit hook ids (fdt_stem.h FDT_STEM_AC_*): invoked once per
 #: fdt_stem_run call at the burst boundary — the native analog of the
-#: Python loop's tile.after_credit slot.  STEM_AC_NET is refused too.
+#: Python loop's tile.after_credit slot.
 STEM_AC_PACK, STEM_AC_POH, STEM_AC_SHRED, STEM_AC_NET = 1, 2, 3, 4
 
 #: the handler and hook ids this build's fdt_stem_run dispatches
-STEM_HANDLERS = (STEM_H_DEDUP, STEM_H_PACK, STEM_H_POH, STEM_H_SHRED)
-STEM_HOOKS = (STEM_AC_PACK, STEM_AC_POH, STEM_AC_SHRED)
+STEM_HANDLERS = (STEM_H_DEDUP, STEM_H_PACK, STEM_H_POH, STEM_H_SHRED,
+                 STEM_H_NET)
+STEM_HOOKS = (STEM_AC_PACK, STEM_AC_POH, STEM_AC_SHRED, STEM_AC_NET)
 
 #: stem flags (cfg word 13): manual-credit tile — skip the global
 #: credit gate; every publish happens in the after-credit hook behind
@@ -850,8 +860,8 @@ class StemSpec:
     per burst by the run loop.  `ready` (optional) gates the stem per
     iteration — a tile with host-side state the fast path cannot
     express yet (dedup's pending replay amnesty) returns False to stay
-    on the Python loop until it drains.  A bank or net handler id (or any
-    id fdt_stem_run does not dispatch) raises ValueError."""
+    on the Python loop until it drains.  A bank handler id (or any id
+    fdt_stem_run does not dispatch) raises ValueError."""
 
     def __init__(self, handler: int, args: np.ndarray,
                  counters: tuple = (), keepalive: tuple = (),
@@ -862,12 +872,12 @@ class StemSpec:
         if handler not in STEM_HANDLERS:
             raise ValueError(
                 f"stem handler id {handler}: the port's stem carries "
-                f"dedup, pack, poh and shred only (ids {STEM_HANDLERS})"
+                f"dedup, pack, poh, shred and net only (ids {STEM_HANDLERS})"
             )
         if ac_handler and ac_handler not in STEM_HOOKS:
             raise ValueError(
                 f"stem after-credit hook id {ac_handler}: the port's stem "
-                f"carries the pack, poh and shred hooks only {STEM_HOOKS}"
+                f"carries the pack, poh, shred and net hooks only {STEM_HOOKS}"
             )
         self.handler = handler
         self.args = args

@@ -84,5 +84,36 @@ def test_wire_pool_feeds_the_synth(pools):
 
 
 def test_udp_blaster_is_refused():
-    with pytest.raises(NotImplementedError, match="net tile"):
-        TB.UdpBlaster(np.zeros((1, 8), np.uint8), ("127.0.0.1", 1))
+    """UdpBlaster delivers every row, in order, to a loopback socket within
+    its window: the reader feeds `landed` and the sender never has more
+    than window + burst datagrams in flight.  Rows are u8 array rows or
+    bytes of different sizes."""
+    import socket
+    import time
+
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    rx.settimeout(5.0)
+    rng = np.random.default_rng(3)
+    rows = [rng.integers(0, 256, 40 + i, np.uint8).tobytes() for i in range(48)]
+    rows += list(rng.integers(0, 256, (16, 64), np.uint8))
+    window, burst = 8, 4
+    b = TB.UdpBlaster(rows, rx.getsockname(), burst=burst, window=window)
+    assert not b.done
+    b.start()
+    got, peak = [], 0
+    try:
+        while len(got) < len(rows):
+            data, _ = rx.recvfrom(2048)
+            got.append(data)
+            peak = max(peak, b.sent - len(got))
+            b.landed = len(got)
+        deadline = time.monotonic() + 5.0
+        while not b.done and time.monotonic() < deadline:
+            time.sleep(1e-3)
+    finally:
+        b.stop()
+        rx.close()
+    assert b.done and b.sent == len(rows)
+    assert got == [r if isinstance(r, bytes) else r.tobytes() for r in rows]
+    assert peak <= window + burst

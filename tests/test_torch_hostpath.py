@@ -91,3 +91,15 @@ def test_shamir_matches_jax():
         got = hostpath._shamir(k, a, s, hostpath._B_EXT)
         want = HJ._shamir(k, HJ._ext(golden.point_neg(golden.B)), s, HJ._B_EXT)
         assert hostpath._compress(got) == HJ._compress(want)
+
+
+def test_sign_matches_golden_and_jax():
+    """hostpath.sign is golden.sign, byte for byte (chip_smoke's sign phase
+    holds every card signature against it, and a sample against golden)."""
+    rng = np.random.default_rng(41)
+    for n in (0, 1, 64, 200, 1232):
+        sk = rng.integers(0, 256, 32, np.uint8).tobytes()
+        msg = rng.integers(0, 256, n, np.uint8).tobytes()
+        sig = hostpath.sign(sk, msg)
+        assert sig == golden.sign(sk, msg) == HJ.sign(sk, msg)
+        assert hostpath.public_from_secret(sk) == golden.public_from_secret(sk)

@@ -47,7 +47,8 @@ def test_port_has_files():
                    "tango/native/fdt_stem.h", "tango/native/fdt_sha256.c",
                    "tango/native/fdt_sha256.h", "tango/native/fdt_poh.c",
                    "tango/native/fdt_poh.h", "tango/native/fdt_shred.c",
-                   "tango/native/fdt_shred.h"):
+                   "tango/native/fdt_shred.h", "tango/native/fdt_net.c",
+                   "tango/native/fdt_net.h"):
         assert (ROOT / "firedancer_tpu_torch" / native).exists()
     for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py",
                  "sha256.py", "poh.py", "gf256.py", "reedsol.py", "sign.py",
@@ -60,7 +61,11 @@ def test_port_has_files():
         assert want in names
     for want in ("tiles/bench.py", "ballet/shred.py", "ballet/bmtree.py",
                  "ballet/hmac.py", "disco/shredder.py", "disco/fec_resolver.py",
-                 "tiles/sign.py", "tiles/poh.py", "tiles/shred.py", "tiles/store.py"):
+                 "tiles/sign.py", "tiles/poh.py", "tiles/shred.py", "tiles/store.py",
+                 "waltz/udpsock.py", "waltz/ip.py", "waltz/x509.py", "waltz/tls.py",
+                 "waltz/quic.py", "waltz/admission.py", "ballet/aes.py",
+                 "ballet/x25519.py", "ballet/chacha20.py", "tango/lru.py",
+                 "tiles/net.py", "tiles/quic.py"):
         assert f"firedancer_tpu_torch/{want}" in rel
 
 

@@ -123,7 +123,7 @@ def test_refused_stem_modes_and_handlers():
         topo.tile(_BankIdTile(name="bad"), ins=[("l", True)])
         try:
             if raises:
-                with pytest.raises(ValueError, match="dedup, pack, poh and shred"):
+                with pytest.raises(ValueError, match="dedup, pack, poh, shred and net"):
                     topo.start(idle_sleep_s=IDLE_S)
             else:
                 topo.start(idle_sleep_s=IDLE_S)
