@@ -163,17 +163,17 @@ and the multi-device layer:
                py_frags and py_credit by tile
   wire         the wire front through entry.ingress(front="wire"): net ->
                quic (via_net) -> verify -> dedup -> sink over 127.0.0.1
-               sockets, the tiles pool's raw txns 128 times in order as
-               65,536 legacy datagrams (UdpBlaster, burst 64, its window
+               sockets, the tiles pool's raw txns 32 times in order as
+               16,384 legacy datagrams (UdpBlaster, burst 64, its window
                the net tile's granted SO_RCVBUF over TRUESIZE less a
                burst, landed fed from the QUIC tile's rx_txns_udp at every
                1 ms poll) and 4 QUIC connections, in a spawned child,
-               sending the pool once (128 txns each) after their
+               sending the pool's first 128 txns (32 each) after their
                handshakes, overlapping the legacy stream; on the
                Python loop, then on the native stem (net's rx hook and tx
                handler and dedup on fdt_stem.c); held exactly
                (check_wire): net received every datagram sent, no
-               oversize drop, 65,536 legacy and 512 QUIC txns at quic, 4
+               oversize drop, 16,384 legacy and 128 QUIC txns at quic, 4
                connections (conns_opened 12: ROADMAP C-5), every client
                established with the identity's key as its peer, verify's
                failures the corrupt sends, verify_core launches = device
@@ -192,11 +192,12 @@ and the multi-device layer:
                the card)
                <-> sign -> store, with a recording sink beside the PoH tile
                on each bank's ring; seven runs: the tiles phase's pool as
-               16,384 frags with select on and off at 1 ms (the run
+               8,192 frags with select on and off at 1 ms (the run
                loop's default 50 us run was dropped, and the frags
-               halved, for the wire run's time), and 8,192
-               distinct transfers over 1,024 payers (tiles/bench.py's
-               corpus, signed on the card) each once, paced so that pack's
+               quartered, for the wire and validator runs' time), and the
+               first 4,096 of 8,192 distinct transfers over 1,024 payers
+               (tiles/bench.py's corpus, signed on the card; the validator
+               phase runs all 8,192) each once, paced so that pack's
                4,096-txn buffer never fills, select on, 1 ms; each 1 ms
                run twice, on the Python loop and on the native stem
                (stem="native": dedup, pack, poh and shred on fdt_stem.c,
@@ -204,8 +205,8 @@ and the multi-device layer:
                pairs, the select-on 1 ms pair under torch.profiler for
                the card's busy share over the run; and a seventh run
                with the wire front (entry.leader(front="wire"), native
-               stem, select on, 1 ms: 32,768 legacy datagrams of the
-               pool and the 4 QUIC connections), held to check_wire's
+               stem, select on, 1 ms: 8,192 legacy datagrams of the
+               pool and the 4 QUIC connections' 128 txns), held to check_wire's
                front counters too; held
                exactly: verify and dedup as in tiles, every good txn
                inserted by pack and none rejected, every good txn executed
@@ -234,6 +235,37 @@ and the multi-device layer:
                seconds and kernel launches, each stem tile's seconds in
                fdt_stem_run, every tile's stem_frags, py_frags and
                py_credit, and the transfer pool's signing seconds
+  validator    the validator as an operator boots it: app/config.py's parse
+               of the repo's default TOML (its name and free loopback ports
+               set) -> build_validator_topology(cfg, identity, blockstore,
+               funk) on the card: net -> quic -> verify (4,096 lanes x
+               1,232 B) -> dedup (4,194,302) -> pack (depth 4,096, 2 ms,
+               31 txns) -> bank x 2 (funk-backed, the shared 16,384-slot
+               account table) -> poh (400 ms, 64 ticks) -> shred <-> sign
+               -> store, + metric + rpc, with a recording sink beside the
+               PoH tile on each bank's ring; 8,192 distinct transfers over
+               1,024 payers (the transfer corpus, signed on the card), each
+               payer funded in a fresh Funk, 8,064 as legacy datagrams and
+               128 over 4 QUIC connections, paced so that pack rejects
+               none; run A the default TOML (Python loop, host select),
+               run B [topo] stem = "native" with [tiles.pack] device_select
+               = true; held exactly against a dict ledger of the corpus
+               (transfer_ledger): 8,192 executed, none failed, fees
+               40,960,000, fast_txns (A) or native_txns (B) 8,192, every
+               funk account equal to the ledger after the halt and no
+               account outside it but the sysvars, RPC
+               getTransactionCount, getSlot, getIdentity and getBalance of
+               64 sampled accounts, GET /metrics 200 with the banks'
+               executed_txns, a Monitor attached by name reading
+               topo.metrics' bank counters, check_egress, verify_core
+               launches = device batches + the warm-up, pack_select
+               launches = select calls, and on B check_stem (net, dedup,
+               pack, poh and shred handle frags on the stem; both banks'
+               handler runs and hands back every microblock, each holding
+               a destination the shared table has not seen); then fdtctl
+               run --full from a TOML file in a subprocess, with fdtctl
+               monitor, GET /metrics and RPC getHealth while it runs, and
+               no workspace file left after its exit
   bench        python -m firedancer_tpu_torch.bench in a subprocess: one JSON
                line with bench.py's keys; then --mode pipeline (replay ->
                verify -> dedup -> sink, bench.py's sizes) at a 1 ms idle
@@ -2169,7 +2201,8 @@ TILES_RUNS = ((1e-3, "python"), (1e-3, "native"))
 #: the tiles that run on the native stem under stem="native", by phase
 STEM_TILES = {"tiles": ("dedup",), "leader": ("dedup", "pack", "poh", "shred"),
               "wire": ("net", "dedup"),
-              "wire_leader": ("net", "dedup", "pack", "poh", "shred")}
+              "wire_leader": ("net", "dedup", "pack", "poh", "shred"),
+              "validator": ("net", "dedup", "pack", "bank0", "bank1", "poh", "shred")}
 
 
 def stamps_summary(stamps, seconds: float) -> dict:
@@ -2200,7 +2233,8 @@ def stamps_summary(stamps, seconds: float) -> dict:
 
 def check_tiles_front(r, launches: int, frags: int = TILES_FRAGS) -> None:
     """The verify and dedup tiles' exact checks (tiles and leader phases):
-    `frags` frags streamed as whole passes over the pool.  A paced leader
+    `frags` frags streamed as whole passes over the pool, then its first
+    frags % len(pool) rows once more (the wire runs' QUIC part).  A paced leader
     run's synth releases frags as the banks execute them, and a wire run's
     senders pace theirs, so the verify tile lands partial batches: as many
     as the timing gives, at least ceil(frags / B); every other run lands
@@ -2208,20 +2242,22 @@ def check_tiles_front(r, launches: int, frags: int = TILES_FRAGS) -> None:
     c = r["counters"]
     v = c["verify"]
     good = r["pool"]["good"]
-    n_good, passes = int(good.sum()), frags // len(good)
+    passes, rem = divmod(frags, len(good))
+    n_good, good_rem = int(good.sum()), int(good[:rem].sum())
+    sent_good = n_good * passes + good_rem
     batches = v["device_batches"]
     want = {
         ("verify", "in_frags"): frags,
-        ("verify", "verify_fail_txns"): (len(good) - n_good) * passes,
-        ("verify", "out_frags"): n_good * passes,
+        ("verify", "verify_fail_txns"): frags - sent_good,
+        ("verify", "out_frags"): sent_good,
         ("verify", "device_batches"): (max(batches, -(-frags // B))
                                        if r.get("paced") or "wire" in r
                                        else frags // B),
         ("verify", "fallback_batches"): 0,
         ("verify", "device_errors"): 0,
         ("verify", "device_trips"): 0,
-        ("dedup", "dup_txns"): n_good * (passes - 1),
-        ("dedup", "out_frags"): n_good,
+        ("dedup", "dup_txns"): sent_good - (n_good if passes else good_rem),
+        ("dedup", "out_frags"): n_good if passes else good_rem,
     }
     got = {k: c[k[0]][k[1]] for k in want}
     if got != want:
@@ -2249,12 +2285,15 @@ def check_tiles(r, launches: int, frags: int = TILES_FRAGS) -> None:
         raise AssertionError(f"dedup took {d['in_frags']} of {v['out_frags']}")
 
 
-def check_stem(r, tiles) -> None:
+def check_stem(r, tiles, handback=()) -> None:
     """A stem="native" run engaged the stem on exactly `tiles`, and each of
-    them handled frags on it; raises otherwise."""
+    them but those of `handback` handled frags on it; raises otherwise.
+    A `handback` tile's handler may hand every frag back to the Python
+    loop (a bank whose every microblock holds an account the shared table
+    has not seen); the caller checks what it executed."""
     st = r["stem"]["tiles"]
     engaged = sorted(n for n, c in st.items() if c["stem_engaged"])
-    idle = [n for n in tiles if st[n]["stem_frags"] <= 0]
+    idle = [n for n in tiles if n not in handback and st[n]["stem_frags"] <= 0]
     if r["stem"]["mode"] != "native" or engaged != sorted(tiles) or idle:
         raise AssertionError(f"stem engaged on {engaged}, not {sorted(tiles)}; "
                              f"no stem frags on {idle}")
@@ -2338,24 +2377,30 @@ def phase_tiles() -> None:
     return pool, r["survivors"]
 
 
-#: the wire phase: legacy passes over the tiles phase's pool (65,536
-#: datagrams), the QUIC connections that together send the pool once, the
-#: runs (the run loop's idle sleep, its inner loop), Python first
-WIRE_PASSES, WIRE_CLIENTS = 128, 4
+#: the wire phase: legacy passes over the tiles phase's pool (16,384
+#: datagrams: cut from 128 passes to pay for the validator phase's time),
+#: the QUIC connections, the pool's first rows they send between them (128:
+#: cut from the whole pool, 512, for the same reason; QUIC ran at 7-18
+#: txns/s and set the wire runs' length), the runs (the run loop's idle
+#: sleep, its inner loop), Python first
+WIRE_PASSES, WIRE_CLIENTS, WIRE_QUIC_TXNS = 32, 4, 128
 WIRE_RUNS = ((1e-3, "python"), (1e-3, "native"))
-#: legacy passes of the wire leader run (32,768 datagrams)
-WIRE_LEADER_PASSES = 64
+#: legacy passes of the wire leader run (8,192 datagrams: cut from 64 passes
+#: to pay for the validator phase's time)
+WIRE_LEADER_PASSES = 16
 
 
 def wire_traffic(pool, passes: int):
     """The wire runs' senders: the pool's raw txns `passes` times in order
-    as legacy datagrams (a UdpBlaster) and the pool once over WIRE_CLIENTS
-    QUIC connections; -> (WireTraffic, frags: every txn sent)."""
+    as legacy datagrams (a UdpBlaster) and its first WIRE_QUIC_TXNS over
+    WIRE_CLIENTS QUIC connections; -> (WireTraffic, frags: every txn
+    sent)."""
     from firedancer_tpu_torch import entry
     from firedancer_tpu_torch.tiles.bench import WireTraffic
 
     raws = entry.raw_txns(pool)
-    traffic = WireTraffic(raws * passes, raws, n_clients=WIRE_CLIENTS, seed=TILES_SEED)
+    traffic = WireTraffic(raws * passes, raws[:WIRE_QUIC_TXNS], n_clients=WIRE_CLIENTS,
+                          seed=TILES_SEED)
     return traffic, traffic.txns
 
 
@@ -2473,6 +2518,7 @@ def phase_wire(pool, tiles_survivors) -> dict:
                 "conns_opened", "loop_iters")},
             **stamps_summary(r["landed_stamps"], r["seconds"])})
     emit({"phase": "wire", "pool": len(pool[0]), "legacy_passes": WIRE_PASSES,
+          "quic_txns": WIRE_QUIC_TXNS,
           "quic_clients": WIRE_CLIENTS, "lanes": B, "msg_width": W,
           "n_good": int(pool[2].sum()), "checks": "exact", "runs": runs,
           "card": nvidia_smi_line(), "seconds": time.time() - t0})
@@ -2481,10 +2527,10 @@ def phase_wire(pool, tiles_survivors) -> dict:
 
 #: the leader phase's runs: (pool, pack device select, the run loop's idle
 #: sleep, its inner loop); "tiles" is the tiles phase's pool and frags,
-#: "transfers" the many-payer transfer corpus, each frag once, paced
-#: (entry.leader's closed loop: its 8,192 distinct txns exceed pack's
-#: 4,096-txn buffer), "wire" the tiles pool behind the wire front (64
-#: legacy passes and the QUIC pass).  Each native run sits next to its
+#: "transfers" the many-payer transfer corpus's first TRANSFER_LEADER_TXNS,
+#: each frag once, paced (entry.leader's closed loop: more distinct txns
+#: than pack's 4,096-txn buffer less the banks' in flight), "wire" the
+#: tiles pool behind the wire front (16 legacy passes and the QUIC part).  Each native run sits next to its
 #: Python twin, the pairs in turns (Python first, then native first), since
 #: host-clock rates move between runs
 LEADER_RUNS = (("tiles", True, 1e-3, "python"), ("tiles", True, 1e-3, "native"),
@@ -2499,11 +2545,14 @@ STEM_HANDLER_TILES = {1: "dedup", 3: "pack", 4: "poh", 5: "shred", 6: "net"}
 #: the transfer corpus: distinct signed transfers, payers, seed
 #: (firedancer_tpu/tiles/bench.py's default payer count)
 TRANSFER_TXNS, TRANSFER_SIGNERS, TRANSFER_SEED = 8192, 1024, 6
-#: frags of each run on the tiles phase's pool (a quarter of TILES_FRAGS:
+#: the leader phase's transfers runs take the corpus's first 4,096 (cut from
+#: all 8,192, which the validator phase runs, to pay for its time)
+TRANSFER_LEADER_TXNS = 4096
+#: frags of each run on the tiles phase's pool (an eighth of TILES_FRAGS:
 #: with the block egress a run took 34-46 s at 65,536 frags on one H100,
-#: and the wire runs took the script to 736 s at 32,768; it must stay
-#: within 750 s)
-LEADER_FRAGS = 16384
+#: the wire runs took the script to 736 s at 32,768, and the validator
+#: phase took 223 s more; it must stay within 750 s)
+LEADER_FRAGS = 8192
 #: recorded select calls held against the plain version after each run
 LEADER_RECORDED = 3
 
@@ -2594,8 +2643,9 @@ def phase_leader(dev, pool) -> dict:
     orig_finish = ShredTile._finish_slot
     orig_stem_run = R.Stem.run
     tpool, sign_s = transfer_pool(dev)
-    pools = {"tiles": (pool, LEADER_FRAGS), "transfers": (tpool, TRANSFER_TXNS),
-             "wire": (pool, len(pool[0]) * (WIRE_LEADER_PASSES + 1))}
+    tsub = tuple(a[:TRANSFER_LEADER_TXNS] for a in tpool)
+    pools = {"tiles": (pool, LEADER_FRAGS), "transfers": (tsub, TRANSFER_LEADER_TXNS),
+             "wire": (pool, len(pool[0]) * WIRE_LEADER_PASSES + WIRE_QUIC_TXNS)}
     identity = wire_identity()
     wire_pub = None
     runs, first = [], None
@@ -2751,10 +2801,539 @@ def phase_leader(dev, pool) -> dict:
             "sha_launches_in_run": sha_launches, **egress})
     emit({"phase": "leader", "pool": TILES_POOL, "frags": LEADER_FRAGS, "lanes": B,
           "msg_width": W, "n_good": int(pool[2].sum()), "banks": 2, "checks": "exact",
-          "transfer_pool": {"txns": TRANSFER_TXNS, "payers": TRANSFER_SIGNERS,
+          "transfer_pool": {"txns": TRANSFER_TXNS, "run_txns": TRANSFER_LEADER_TXNS,
+                            "payers": TRANSFER_SIGNERS,
                             "seed": TRANSFER_SEED, "signing_seconds": sign_s},
           "runs": runs, "card": nvidia_smi_line(), "seconds": time.time() - t0})
     return first
+
+
+# ---------------------------------------------------------------------------
+# the validator: fdtctl's full topology from TOML, with funk-backed banks
+# ---------------------------------------------------------------------------
+
+#: the validator phase's transactions that go over QUIC (the rest go as
+#: legacy datagrams), over this many connections
+VALIDATOR_QUIC_TXNS, VALIDATOR_QUIC_CLIENTS = 128, 4
+#: the validator phase's runs: (label, TOML added to the defaults); A is the
+#: default TOML (Python loop, host select), B the native stem with pack's
+#: select on the card
+VALIDATOR_RUNS = (("A", ""),
+                  ("B", '[topo]\nstem = "native"\n[tiles.pack]\ndevice_select = true\n'))
+#: lamports each payer holds beyond its transfers and their fees
+VALIDATOR_MARGIN = 1_000_000
+#: accounts whose balance RPC getBalance must report, and the seconds it may
+#: take a housekeeping commit to land them in funk
+VALIDATOR_RPC_SAMPLE, VALIDATOR_RPC_DEADLINE_S = 64, 60.0
+#: the run loop's idle sleep in the validator runs
+VALIDATOR_IDLE_S = 1e-3
+#: the bank counters that the monitor, /metrics and topo.metrics must agree on
+VALIDATOR_BANK_COUNTERS = ("executed_microblocks", "executed_txns", "failed_txns",
+                           "fast_txns", "fees_lamports", "native_txns")
+#: fdtctl's monitor prints in the CLI check
+FDTCTL_ITERATIONS = 5
+
+
+def transfer_ledger(raws, fee: int = 5000):
+    """The plain reference of the validator phase, independent of
+    flamenco/runtime.py: each transfer's payer (account 0), destination
+    (account 1) and amount (the system instruction's u64 after its u32
+    tag) read from the wire bytes; -> (funding: payer -> lamports, enough
+    for all its transfers and fees plus VALIDATOR_MARGIN; want: account ->
+    lamports once every transfer executed)."""
+    from firedancer_tpu_torch.ballet import txn as T
+
+    spend, credit = {}, {}
+    for raw in raws:
+        d = T.parse(raw)
+        payer, dest = bytes(d.acct_addr(raw, 0)), bytes(d.acct_addr(raw, 1))
+        off = d.instr[0].data_off
+        if int.from_bytes(raw[off:off + 4], "little") != 2:
+            raise AssertionError("the validator corpus holds a non-transfer")
+        amount = int.from_bytes(raw[off + 4:off + 12], "little")
+        spend[payer] = spend.get(payer, 0) + amount + fee * d.signature_cnt
+        credit[dest] = credit.get(dest, 0) + amount
+    funding = {p: s + VALIDATOR_MARGIN for p, s in spend.items()}
+    want = {p: funding[p] - spend[p] for p in funding}
+    for k, v in credit.items():
+        want[k] = want.get(k, 0) + v
+    return funding, want
+
+
+def validator_toml(name: str, ports: dict, extra: str = "") -> str:
+    """The validator's TOML: the repo's defaults (firedancer_tpu_torch/
+    app/config.py) with the workspace name, the loopback ports and
+    `extra` set."""
+    return (f'name = "{name}"\n{extra}'
+            f'[tiles.quic]\nquic_port = {ports["quic"]}\nudp_port = {ports["udp"]}\n'
+            f'[tiles.metric]\nport = {ports["metric"]}\n'
+            f'[tiles.rpc]\nport = {ports["rpc"]}\n')
+
+
+def free_ports(n: int) -> list:
+    """n distinct free TCP/UDP port numbers on this host."""
+    out = []
+    while len(out) < n:
+        p = free_port()
+        if p not in out:
+            out.append(p)
+    return out
+
+
+def _loopback(addr) -> tuple:
+    return ("127.0.0.1", addr[1])
+
+
+def validator_run(text: str, raws: list, funding: dict, identity: bytes, *,
+                  device=None, idle_sleep_s: float = VALIDATOR_IDLE_S,
+                  rpc_sample: list = (), want: dict | None = None,
+                  quic_txns: int = VALIDATOR_QUIC_TXNS,
+                  quic_clients: int = VALIDATOR_QUIC_CLIENTS) -> dict:
+    """One validator run: app.config.parse(text) ->
+    build_validator_topology(cfg, identity, a temporary blockstore,
+    funk=a fresh Funk holding `funding`, device=device), with a recording
+    sink beside the PoH tile on each bank's ring; the last `quic_txns` of
+    `raws` over `quic_clients` QUIC connections from a spawned child, the
+    rest as legacy datagrams (a UdpBlaster), paced so that at most pack's
+    depth less the banks' in-flight txns are sent and not yet executed;
+    run until every txn is executed and mixed and the slot holding the
+    last mixin is stored.  While the topology runs it asks RPC for the
+    transaction count, the slot, the identity and the balance of each
+    account of `rpc_sample` (polled until it equals `want`, or
+    VALIDATOR_RPC_DEADLINE_S), scrapes /metrics and attaches a Monitor by
+    the workspace's name.  -> a report with entry.leader's keys that
+    check_egress reads, plus `rpc`, `scrape`, `monitor`, `funk` (every
+    record after the halt) and the run's rates."""
+    import shutil
+    import tempfile
+
+    from firedancer_tpu_torch.app import config as C
+    from firedancer_tpu_torch.app.monitor import Monitor
+    from firedancer_tpu_torch.ballet import base58, http
+    from firedancer_tpu_torch.disco import metrics as M
+    from firedancer_tpu_torch.entry import WIRE_STALL_S, _stem_report
+    from firedancer_tpu_torch.flamenco.accounts import Account, AccountMgr
+    from firedancer_tpu_torch.funk import Funk
+    from firedancer_tpu_torch.ops.ed25519 import hostpath
+    from firedancer_tpu_torch.tiles.bench import BLAST_BURST, WireTraffic
+    from firedancer_tpu_torch.tiles.rpc import rpc_call
+    from firedancer_tpu_torch.tiles.sink import SinkTile
+
+    cfg = C.parse(text)
+    funk = Funk()
+    mgr = AccountMgr(funk)
+    for payer, lam in funding.items():
+        mgr.store(payer, Account(lam))
+    path = tempfile.mkdtemp(prefix="fdt_blockstore_")
+    n_banks = cfg.bank_count
+    legacy, quic = raws[:len(raws) - quic_txns], raws[len(raws) - quic_txns:]
+    traffic = WireTraffic(legacy, quic, n_clients=quic_clients, seed=TILES_SEED)
+    topo = None
+    try:
+        topo, h = C.build_validator_topology(cfg, identity, path, funk=funk,
+                                             device=device)
+        sinks = [SinkTile(record=True, name=f"sink{i}") for i in range(n_banks)]
+        for i, s in enumerate(sinks):
+            topo.tile(s, ins=[(f"bank{i}_poh", True)])
+        topo.build()
+        m = {n: topo.metrics(n) for n in topo.tiles}
+        banks = [m[f"bank{i}"] for i in range(n_banks)]
+        verify = [m[n] for n in topo.tiles if n.startswith("verify")]
+        poh = topo.tiles["poh"].tile
+        budget = (cfg.pack_depth - n_banks * cfg.pack_mb_inflight * cfg.pack_txn_limit
+                  - len(quic))
+        topo.start(batch_max=cfg.verify_max_lanes, idle_sleep_s=idle_sleep_s)
+        net = h["net"]
+        import socket
+
+        rcvbuf = net.udp_sock.sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+        t0 = time.perf_counter()
+        traffic.start({"quic": _loopback(net.quic_addr), "udp": _loopback(net.udp_addr)},
+                      rcvbuf)
+        total, marks = len(raws), {}
+
+        def executed() -> int:
+            return sum(b.counter("executed_txns") for b in banks)
+
+        def done() -> bool:
+            mq = m["quic"]
+            udp, qn = mq.counter("rx_txns_udp"), mq.counter("rx_txns_quic")
+            traffic.poll(max(min(udp, executed() + budget - traffic.window - BLAST_BURST), 0))
+            sent = traffic.dgrams_sent
+            state = (sent["legacy"], m["net"].counter("rx_dgrams"), udp, qn, executed())
+            now = time.perf_counter()
+            if marks.get("state") != state:
+                marks["state"], marks["moved"] = state, now
+            elif now - marks["moved"] > WIRE_STALL_S:
+                raise TimeoutError(f"validator stalled {WIRE_STALL_S} s: sent {sent}, "
+                                   f"(legacy, net rx, udp, quic, executed) {state}")
+            if not (traffic.finished() and m["net"].counter("rx_dgrams")
+                    >= sent["legacy"] + sent["quic"] and udp + qn >= total):
+                return False
+            mp, md = m["pack"], m["dedup"]
+            mbs = mp.counter("microblocks")
+            mb_done = sum(b.counter("executed_microblocks") for b in banks)
+            if not (sum(v.counter("in_frags") for v in verify) >= total
+                    and md.counter("out_frags") + md.counter("dup_txns")
+                    >= sum(v.counter("out_frags") for v in verify)
+                    and mp.counter("inserted_txns") + mp.counter("insert_rejected")
+                    >= md.counter("out_frags")
+                    and mp.counter("microblock_txns") >= mp.counter("inserted_txns")
+                    and mp.counter("completions") >= mbs
+                    and mb_done + sum(b.counter("malformed_microblocks") for b in banks)
+                    >= mbs
+                    and sum(m[s.name].counter("sunk_frags") for s in sinks) >= mb_done
+                    and executed() >= total):
+                return False
+            marks.setdefault("executed", now)
+            if m["poh"].counter("mixins") < mb_done:
+                return False
+            last = marks.setdefault("slot", poh.slot)
+            return poh.slot > last and m["store"].counter("completed_slots") >= last + 1
+
+        deadline = t0 + 600.0
+        while not done():
+            topo.poll_failure()
+            if time.perf_counter() > deadline:
+                raise TimeoutError("validator: not done after 600 s")
+            time.sleep(1e-3)
+        dt = time.perf_counter() - t0
+        # the observer surfaces, while every tile still runs
+        rpc_addr, metric_addr = _loopback(h["rpc"].addr), _loopback(h["metric"].addr)
+        rpc = {"getTransactionCount": rpc_call(rpc_addr, "getTransactionCount")["result"],
+               "getSlot": rpc_call(rpc_addr, "getSlot")["result"],
+               "getHealth": rpc_call(rpc_addr, "getHealth")["result"],
+               "getIdentity": rpc_call(rpc_addr, "getIdentity")["result"]["identity"]}
+        t_bal = time.perf_counter()
+        balances = {}
+        while True:
+            balances = {k: rpc_call(rpc_addr, "getBalance", [base58.encode_32(k)])
+                        ["result"]["value"] for k in rpc_sample}
+            if want is None or all(balances[k] == want[k] for k in rpc_sample):
+                break
+            if time.perf_counter() - t_bal > VALIDATOR_RPC_DEADLINE_S:
+                break
+            time.sleep(0.05)
+        rpc["getBalance"] = balances
+        rpc["balance_seconds"] = time.perf_counter() - t_bal
+        status, body = http.get(metric_addr, "/metrics")
+        scrape = {"status": status, "counters": {}}
+        for line in body.decode().splitlines():
+            if line.startswith("fdt_bank") and not line.startswith("#"):
+                key, val = line.rsplit(" ", 1)
+                scrape["counters"][key] = int(val)
+        mon = Monitor(cfg.name)
+        try:
+            snap = mon.snapshot()
+        finally:
+            mon.wksp.close()
+        monitor = {f"bank{i}": {c: snap[f"bank{i}"]["counters"][c]
+                                for c in VALIDATOR_BANK_COUNTERS} for i in range(n_banks)}
+        direct = {f"bank{i}": {c: banks[i].counter(c) for c in VALIDATOR_BANK_COUNTERS}
+                  for i in range(n_banks)}
+        topo.halt()
+        topo.poll_failure()
+        counters = {n: {c: mm.counter(c) for c in mm.schema.counters} for n, mm in m.items()}
+        lat = {}
+        for i, s in enumerate(sinks):
+            hh = m[s.name].hist(f"e2e_us_bank{i}_poh")
+            if hh["count"]:
+                lat[f"e2e_sink{i}_p50_us"] = M.hist_percentile(hh, 50)
+                lat[f"e2e_sink{i}_p99_us"] = M.hist_percentile(hh, 99)
+        hv = verify[0].hist("svc_us_quic_verify")
+        if hv["count"]:
+            lat["verify_hop_p99_us"] = M.hist_percentile(hv, 99)
+        bs = h["store"].store
+        stored = bs.slots()
+        blockstore = {"blocks": {s: bs.block(s) for s in stored},
+                      "shreds": {s: bs.shreds(s) for s in stored}}
+        shred = topo.tiles["shred"].tile
+        wire_rep = traffic.report()
+        stem_mode = cfg.stem or "python"
+    finally:
+        traffic.close()
+        if topo is not None:
+            topo.close()
+        shutil.rmtree(path, ignore_errors=True)
+    payloads = [row[:sz].tobytes() for s in sinks
+                for rows, szs in zip(s.payloads, s.sizes) for row, sz in zip(rows, szs)]
+    seconds = marks["executed"] - t0
+    return {
+        "counters": counters, "microblock_payloads": payloads,
+        "blockstore": blockstore, "slots_mixed": marks["slot"] + 1,
+        "identity": hostpath.public_from_secret(identity),
+        "shred_tile": {"pending": shred.pending_cnt, "signq": shred.signq_len,
+                       "outq": shred.outq_len},
+        "stem": {"mode": stem_mode, "tiles": _stem_report(counters)},
+        "rpc": rpc, "scrape": scrape, "monitor": monitor, "monitor_direct": direct,
+        "funk": dict(funk.root), "total": total, "seconds": seconds,
+        "egress_seconds": dt, "executed_per_s": total / seconds, **lat,
+        "wire": {"dgrams_sent": wire_rep["dgrams_sent"], "window": wire_rep["window"],
+                 "rcvbuf": wire_rep["rcvbuf"], "handshake_ms": wire_rep["handshake_ms"],
+                 "quic_clients": wire_rep["quic_clients"],
+                 "net_rx_dgrams": counters["net"]["rx_dgrams"],
+                 "oversize_drops": counters["net"]["oversize_drops"],
+                 "rx_txns_udp": counters["quic"]["rx_txns_udp"],
+                 "rx_txns_quic": counters["quic"]["rx_txns_quic"],
+                 "conns_opened": counters["quic"]["conns_opened"],
+                 "parse_fail_txns": counters["quic"]["parse_fail_txns"]},
+    }
+
+
+def check_validator(r, want: dict, n_legacy: int, identity_pub: bytes, *,
+                    native: bool, launches: int | None = None,
+                    all_banks_busy: bool = True) -> None:
+    """A validator run's exact checks (all but the egress, which
+    check_egress holds); raises on any miss.  all_banks_busy: every bank
+    executed some txns (a corpus of a few batches may leave one idle)."""
+    from firedancer_tpu_torch.ballet import base58
+    from firedancer_tpu_torch.flamenco import sysvar
+    from firedancer_tpu_torch.flamenco.accounts import Account
+
+    c, total = r["counters"], r["total"]
+    banks = sorted(k for k in c if re.fullmatch(r"bank\d+", k))
+    w = r["wire"]
+    n_quic = sum(cl["txns"] for cl in w["quic_clients"])
+    got = {"net_rx_dgrams": w["net_rx_dgrams"], "oversize_drops": w["oversize_drops"],
+           "rx_txns_udp": w["rx_txns_udp"], "rx_txns_quic": w["rx_txns_quic"],
+           "parse_fail_txns": w["parse_fail_txns"], "legacy_sent": w["dgrams_sent"]["legacy"]}
+    wnt = {"net_rx_dgrams": w["dgrams_sent"]["legacy"] + w["dgrams_sent"]["quic"],
+           "oversize_drops": 0, "rx_txns_udp": n_legacy, "rx_txns_quic": total - n_legacy,
+           "parse_fail_txns": 0, "legacy_sent": n_legacy}
+    if got != wnt or n_quic != total - n_legacy:
+        raise AssertionError(f"validator wire counters {got} != {wnt} ({n_quic} QUIC txns)")
+    bad = [cl for cl in w["quic_clients"]
+           if not cl["established"] or cl["peer_identity"] != identity_pub]
+    if bad:
+        raise AssertionError(f"QUIC clients not established or with another peer: {bad}")
+    vs = [k for k in c if k.startswith("verify")]
+    v = {k: sum(c[n][k] for n in vs) for k in (
+        "in_frags", "out_frags", "verify_fail_txns", "dedup_drop_txns", "device_batches",
+        "fallback_batches", "device_errors", "device_trips")}
+    p = c["pack"]
+    got = {
+        "verify_in": v["in_frags"], "verify_out": v["out_frags"],
+        "verify_fail": v["verify_fail_txns"], "verify_dedup_drop": v["dedup_drop_txns"],
+        "fallback_batches": v["fallback_batches"], "device_errors": v["device_errors"],
+        "dedup_out": c["dedup"]["out_frags"], "dedup_dups": c["dedup"]["dup_txns"],
+        "inserted_txns": p["inserted_txns"], "insert_rejected": p["insert_rejected"],
+        "executed_txns": sum(c[b]["executed_txns"] for b in banks),
+        "failed_txns": sum(c[b]["failed_txns"] for b in banks),
+        "malformed_microblocks": sum(c[b]["malformed_microblocks"] for b in banks),
+        "fees_lamports": sum(c[b]["fees_lamports"] for b in banks),
+        "fast_txns" if not native else "native_txns":
+            sum(c[b]["native_txns" if native else "fast_txns"] for b in banks),
+        "completions": p["completions"],
+    }
+    wnt = {"verify_in": total, "verify_out": total, "verify_fail": 0,
+           "verify_dedup_drop": 0, "fallback_batches": 0, "device_errors": 0,
+           "dedup_out": total, "dedup_dups": 0, "inserted_txns": total,
+           "insert_rejected": 0, "executed_txns": total, "failed_txns": 0,
+           "malformed_microblocks": 0, "fees_lamports": 5000 * total,
+           "fast_txns" if not native else "native_txns": total,
+           "completions": p["microblocks"]}
+    if got != wnt:
+        raise AssertionError(f"validator counters {got} != {wnt}")
+    idle = [b for b in banks if c[b]["executed_txns"] == 0]
+    if idle and all_banks_busy:
+        raise AssertionError(f"validator: {idle} executed nothing")
+    if launches is not None and launches != v["device_batches"] + 1:
+        raise AssertionError(f"verify_core launched {launches} times for "
+                             f"{v['device_batches']} batches and one warm-up")
+    # funk after the halt: every ledger account, and sysvars beside them
+    f = r["funk"]
+    wrong = [k for k, lam in want.items()
+             if k not in f or Account.decode(f[k]).lamports != lam]
+    other = [k for k in f if k not in want
+             and Account.decode(f[k]).owner != sysvar.SYSVAR_OWNER_ID]
+    if wrong or other:
+        raise AssertionError(f"funk: {len(wrong)} accounts differ from the ledger, "
+                             f"{len(other)} accounts outside it")
+    rpc = r["rpc"]
+    bal_bad = {k.hex(): (v_, want[k]) for k, v_ in rpc["getBalance"].items() if v_ != want[k]}
+    if (rpc["getTransactionCount"] != total or rpc["getSlot"] < 1 or rpc["getHealth"] != "ok"
+            or rpc["getIdentity"] != base58.encode_32(identity_pub) or bal_bad):
+        raise AssertionError(f"RPC: {dict(rpc, getBalance=bal_bad)}")
+    sc = r["scrape"]
+    execd = sum(sc["counters"].get(f"fdt_{b}_executed_txns", 0) for b in banks)
+    if sc["status"] != 200 or execd != total:
+        raise AssertionError(f"/metrics: status {sc['status']}, executed_txns {execd}")
+    if r["monitor"] != r["monitor_direct"]:
+        raise AssertionError(f"monitor {r['monitor']} != topo.metrics {r['monitor_direct']}")
+
+
+def fdtctl_check(name: str) -> dict:
+    """fdtctl as an operator runs it: `python -m
+    firedancer_tpu_torch.app.fdtctl run --full --config <toml> --keyfile
+    <k> --iterations FDTCTL_ITERATIONS` in a subprocess on fixed free
+    ports; once its workspace is published, `fdtctl monitor --name <name>
+    --iterations 1` in a second subprocess must exit 0 and print the bank
+    rows, GET /metrics must give 200 and RPC getHealth must answer "ok";
+    then run must exit 0 and leave no workspace file.  -> seconds."""
+    import glob
+    import tempfile
+
+    from firedancer_tpu_torch.ballet import http
+    from firedancer_tpu_torch.tango import rings as R
+    from firedancer_tpu_torch.tiles.rpc import rpc_call
+
+    t0 = time.time()
+    quic, udp, met, rpc = free_ports(4)
+    d = tempfile.mkdtemp(prefix="fdtctl_")
+    cfg = os.path.join(d, "validator.toml")
+    key = os.path.join(d, "identity.key")
+    with open(cfg, "w") as f:
+        f.write(validator_toml(name, {"quic": quic, "udp": udp, "metric": met, "rpc": rpc}))
+    with open(key, "wb") as f:
+        f.write(wire_identity())
+    cmd = [sys.executable, "-m", "firedancer_tpu_torch.app.fdtctl"]
+    run = subprocess.Popen(cmd + ["run", "--full", "--config", cfg, "--keyfile", key,
+                                  "--iterations", str(FDTCTL_ITERATIONS),
+                                  "--blockstore", os.path.join(d, "store")],
+                           cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    out = {}
+    try:
+        dir_file = f"{R.SHM_PREFIX}{name}.dir"
+        deadline = time.time() + 300
+        while not os.path.exists(dir_file):
+            if run.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"fdtctl run published no workspace (exit "
+                                     f"{run.poll()}): {run.stderr.read()[-4000:]}")
+            time.sleep(0.05)
+        out["boot_seconds"] = time.time() - t0
+        mon = subprocess.Popen(cmd + ["monitor", "--name", name, "--iterations", "1"],
+                               cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True)
+        status, body = http.get(("127.0.0.1", met), "/metrics")
+        health = rpc_call(("127.0.0.1", rpc), "getHealth")["result"]
+        m_out, m_err = mon.communicate(timeout=120)
+        rows = [ln.split()[0] for ln in m_out.splitlines() if ln.split()[:1] in (["bank0"],
+                                                                                ["bank1"])]
+        if (mon.returncode != 0 or sorted(rows) != ["bank0", "bank1"] or status != 200
+                or b"fdt_bank0_executed_txns" not in body or health != "ok"):
+            raise AssertionError(f"fdtctl monitor exited {mon.returncode} with bank rows "
+                                 f"{rows}; /metrics {status}; getHealth {health!r}: "
+                                 f"{m_err[-2000:]}")
+        r_out, r_err = run.communicate(timeout=300)
+    finally:
+        if run.poll() is None:
+            run.kill()
+            run.communicate()
+    left = glob.glob(f"{R.SHM_PREFIX}{name}*")
+    if run.returncode != 0 or left:
+        raise AssertionError(f"fdtctl run exited {run.returncode}, left {left}: "
+                             f"{r_err[-4000:]}")
+    prints = len(re.findall(r"(?m)^\s*tile\s+state\s", r_out))
+    out.update({"seconds": time.time() - t0, "monitor_prints": prints,
+                "metrics_status": status, "get_health": health})
+    return out
+
+
+def phase_validator(dev) -> dict:
+    """The validator as an operator boots it, on the card: runs A and B
+    (VALIDATOR_RUNS) of build_validator_topology from TOML with a funded
+    Funk on the transfer corpus (8,192 distinct transfers over 1,024
+    payers, signed on the card), each held by check_validator,
+    check_egress and, on B, check_stem; then fdtctl_check.  -> the
+    launches of verify_core and pack_select in its runs."""
+    from firedancer_tpu_torch import entry
+    from firedancer_tpu_torch.ops import pack_select as PS
+    from firedancer_tpu_torch.ops.ed25519 import hostpath
+    from firedancer_tpu_torch.ops.ed25519 import verify_core as VC
+    from firedancer_tpu_torch.tango import rings as R
+    from firedancer_tpu_torch.tiles.shred import ShredTile
+
+    t0 = time.time()
+    tpool, sign_s = transfer_pool(dev)
+    raws = entry.raw_txns(tpool)
+    funding, want = transfer_ledger(raws)
+    identity = wire_identity()
+    pub = hostpath.public_from_secret(identity)
+    rng = np.random.default_rng(TRANSFER_SEED)
+    keys = sorted(want)
+    sample = [keys[i] for i in rng.choice(len(keys), VALIDATOR_RPC_SAMPLE, replace=False)]
+    orig_sel, orig_finish, orig_stem_run = PS.select_noconflict, ShredTile._finish_slot, R.Stem.run
+    runs, launches = [], {"verify_core": 0, "pack_select": 0}
+    for label, extra in VALIDATOR_RUNS:
+        calls, finish, stem_s = [0], [], {}
+
+        def counting(*a, **kw):
+            calls[0] += 1
+            return orig_sel(*a, **kw)
+
+        def timed_finish(self, *a, **kw):
+            t = time.perf_counter()
+            out = orig_finish(self, *a, **kw)
+            finish.append(time.perf_counter() - t)
+            return out
+
+        def stem_run(self, *a, **kw):
+            t = time.perf_counter()
+            out = orig_stem_run(self, *a, **kw)
+            h = self.spec.handler
+            name = (f"bank{int(self.spec.args[22])}" if h == R.STEM_H_BANK
+                    else STEM_HANDLER_TILES[h])
+            stem_s[name] = stem_s.get(name, 0.0) + time.perf_counter() - t
+            return out
+
+        ports = dict(zip(("quic", "udp", "metric", "rpc"), free_ports(4)))
+        text = validator_toml(f"fdt_smoke_{label.lower()}", ports, extra)
+        PS.select_noconflict = counting
+        ShredTile._finish_slot = timed_finish
+        R.Stem.run = stem_run
+        try:
+            sync()
+            VC.LAUNCHES = 0
+            PS.LAUNCHES = 0
+            r = validator_run(text, raws, funding, identity, device=dev,
+                              rpc_sample=sample, want=want)
+            sync()
+            vc, ps = VC.LAUNCHES, PS.LAUNCHES
+        finally:
+            PS.select_noconflict = orig_sel
+            ShredTile._finish_slot = orig_finish
+            R.Stem.run = orig_stem_run
+        native = "native" in extra
+        check_validator(r, want, len(raws) - VALIDATOR_QUIC_TXNS, pub, native=native,
+                        launches=vc)
+        if native:
+            # every transfer has a destination no earlier one touched, so
+            # every microblock misses the shared table and the bank
+            # handler hands it back (fdt_bank_exec then runs it from the
+            # Python resume: native_txns)
+            check_stem(r, STEM_TILES["validator"], handback=("bank0", "bank1"))
+            if not all(stem_s.get(b) for b in ("bank0", "bank1")):
+                raise AssertionError(f"run {label}: the bank handler never ran: {stem_s}")
+        if ps != calls[0] or (native and not calls[0]):
+            raise AssertionError(f"pack_select launched {ps} times for {calls[0]} "
+                                 f"select calls (run {label})")
+        egress = check_egress(r, dev)
+        c = r["counters"]
+        launches["verify_core"] += vc
+        launches["pack_select"] += ps
+        runs.append({
+            "run": label, "toml_extra": extra, "executed_per_s": r["executed_per_s"],
+            "seconds": r["seconds"], "egress_seconds": r["egress_seconds"],
+            **{k: v for k, v in r.items() if k.endswith("_us")},
+            "device_batches": c["verify0"]["device_batches"],
+            "verify_core_launches_after_warmup": vc - 1,
+            "select_calls": calls[0], "pack_select_launches": ps,
+            "handshake_ms": r["wire"]["handshake_ms"],
+            "finish_slot_ms_per_slot": (sum(finish) * 1e3 / len(finish) if finish else None),
+            "committed_accounts": {b: c[b]["committed_accounts"] for b in ("bank0", "bank1")},
+            "microblocks_per_bank": [c[b]["executed_microblocks"] for b in ("bank0", "bank1")],
+            "fast_txns": sum(c[b]["fast_txns"] for b in ("bank0", "bank1")),
+            "native_txns": sum(c[b]["native_txns"] for b in ("bank0", "bank1")),
+            "rpc_balance_seconds": r["rpc"]["balance_seconds"],
+            "stem_run_seconds": stem_s, "stem_counts": stem_counts(r),
+            "window": r["wire"]["window"], "rcvbuf": r["wire"]["rcvbuf"], **egress})
+    cli = fdtctl_check("fdt_smoke_cli")
+    emit({"phase": "validator", "txns": len(raws), "payers": len(funding),
+          "quic_txns": VALIDATOR_QUIC_TXNS, "accounts": len(want), "checks": "exact",
+          "signing_seconds": sign_s, "runs": runs, "fdtctl": cli,
+          "card": nvidia_smi_line(), "seconds": time.time() - t0})
+    return launches
 
 
 #: the keys of bench.py's JSON line that the port's bench keeps
@@ -2811,13 +3390,15 @@ def phase_configure(t_start: float) -> None:
 def run_multi(dev, batches, single_bloom, keeps, metrics, t_start) -> dict:
     """The phases of the multi-device layer and the tile pipelines; -> the
     leader's first run's kernel launches (phase_leader), with the wire
-    runs' launches under "wire"."""
+    runs' launches under "wire" and the validator runs' under
+    "validator"."""
     phase_dist_step(dev, batches, single_bloom, keeps, metrics)
     phase_pool(dev, batches)
     pool, survivors = phase_tiles()
     wire_launches = phase_wire(pool, survivors)
     launches = phase_leader(dev, pool)
     launches["wire"]["verify_core_ingress"] = wire_launches["verify_core"]
+    launches["validator"] = phase_validator(dev)
     phase_bench()
     phase_configure(t_start)
     return launches
@@ -3195,6 +3776,7 @@ def run(dev) -> dict:
     leader_launches = run_multi(dev, batches, bloom, keeps, metrics, t_start)
     ps_row["launches"] = leader_launches["pack_select"]
     ps_row["wire_leader_launches"] = leader_launches["wire"]["pack_select"]
+    ps_row["validator_launches"] = leader_launches["validator"]["pack_select"]
     for row in rest:
         row["leader_launches"] = leader_launches[row["name"]]
 
@@ -3215,7 +3797,8 @@ def run(dev) -> dict:
         "library_ms": None,
         **({"wire_launches": {
             "ingress": leader_launches["wire"]["verify_core_ingress"],
-            "leader": leader_launches["wire"]["verify_core"]}}
+            "leader": leader_launches["wire"]["verify_core"]},
+            "validator_launches": leader_launches["validator"]["verify_core"]}
            if name == "verify_core" else {}),
     } for name, file, where, n, err in rows] + rest + [ps_row]})
     print(nvidia_smi_line(), flush=True)

@@ -1,7 +1,8 @@
 """Shared-memory metrics regions, one per tile.
 
 A copy of firedancer_tpu/disco/metrics.py, without the readers of its
-monitor, SLO and profile layers (not ported yet).
+SLO and profile layers (`merge_hists`, `hist_frac_above`; not ported
+yet).
 
 Reference model: src/disco/metrics/ — an XML schema compiled to typed
 per-tile offset tables, written lock-free by the owning tile via
@@ -54,6 +55,31 @@ def device_counters(
     return tuple(
         f"dev{i}_{m}" for i in range(n_devices) for m in names
     )
+
+
+def parse_device_counter(name: str) -> tuple[int, str] | None:
+    """"dev3_landed" -> (3, "landed"); None for non-device counters."""
+    if not name.startswith("dev"):
+        return None
+    head, _, metric = name.partition("_")
+    if not metric or metric not in DEVICE_METRICS:
+        return None
+    try:
+        return int(head[3:]), metric
+    except ValueError:
+        return None
+
+
+def device_rows(counters: dict) -> dict[int, dict]:
+    """Group a tile's counter snapshot into per-device health rows:
+    {dev_idx: {metric: value}} for every dev{i}_* counter present."""
+    out: dict[int, dict] = {}
+    for name, v in counters.items():
+        parsed = parse_device_counter(name)
+        if parsed is not None:
+            idx, metric = parsed
+            out.setdefault(idx, {})[metric] = v
+    return out
 
 
 @dataclass(frozen=True)
@@ -275,3 +301,22 @@ def hist_percentile(h: dict, q: float) -> float:
     # unreachable while rank <= mass; keep the clamp for safety
     b, n = occupied[-1]
     return float(1 << (b + 1))
+
+
+def hist_delta(cur: dict, prev: dict | None) -> dict:
+    """Windowed hist: cur - prev per bucket (both cumulative monotone
+    snapshots of the same region).  No/empty prev -> cur unchanged
+    (cumulative view).  Buckets are padded to the longer vector so a
+    schema-extended snapshot diffs cleanly against an older one."""
+    if not prev or not prev.get("count"):
+        return cur
+    cb, pb = cur.get("buckets", []), prev.get("buckets", [])
+    n = max(len(cb), len(pb))
+    return {
+        "count": cur.get("count", 0) - prev.get("count", 0),
+        "sum": cur.get("sum", 0) - prev.get("sum", 0),
+        "buckets": [
+            (cb[i] if i < len(cb) else 0) - (pb[i] if i < len(pb) else 0)
+            for i in range(n)
+        ],
+    }

@@ -487,6 +487,8 @@ def _stem_apply(ctx, m, stem, spec, tracer, out_seq0, tspub,
         v = int(ctrs[idx])
         if v:
             m.inc(name, v)
+    if total and spec.after_burst is not None:
+        spec.after_burst(ctx, ctrs)
     return total
 
 

@@ -6,7 +6,10 @@ the reference's own tests use (src/disco/dedup/test_dedup.c:654-660),
 with either data-plane inner loop (`stem="python"`, the default, or
 `"native"`: the tiles that register a native handler run the GIL-released
 fdt_stem burst loop).  The mode is an explicit argument only: the JAX
-package's FDT_STEM environment switch is not carried.
+package's FDT_STEM environment switch is not carried.  A named topology
+publishes its workspace directory and a monitor manifest once every tile
+is in RUN (`export_manifest`), so app/monitor.py and the metric tile can
+attach to it by name.
 Not ported yet, and refused rather than ignored: the process runtime
 (`runtime="process"`), the supervisor, elastic shards,
 the version handshake and hot upgrade, the flight recorder, the run-loop
@@ -364,6 +367,7 @@ class Topology:
                     if ts.error is not None:
                         raise ts.error
                     raise RuntimeError(f"tile {name!r} failed during boot")
+        self.export_manifest()
 
     def poll_failure(self) -> None:
         """Fail-stop check: if any tile died, halt everything and re-raise."""
@@ -406,6 +410,49 @@ class Topology:
 
     def metrics(self, tile_name: str) -> Metrics:
         return self._metrics[tile_name]
+
+    def metrics_registry(self) -> dict[str, Metrics]:
+        """Snapshot of every tile's Metrics (the metric tile's source)."""
+        return dict(self._metrics)
+
+    def export_manifest(self) -> None:
+        """Publish the workspace directory + a monitor manifest (tile
+        schemas, metrics/cnc alloc names, link fseq names, the resolved
+        stem mode) so a separate process can attach and observe
+        (app/monitor.py).  No-op for anonymous (in-process) workspaces.
+        The port has no profile, flight, SLO or elastic regions and no
+        trace reader, so the manifest carries none of those keys."""
+        if self.wksp is None or self.wksp.name is None:
+            return
+        tiles = {}
+        for name, ts in self.tiles.items():
+            schema = self._metrics[name].schema
+            tiles[name] = {
+                "metrics": f"metrics_{name}",
+                "cnc": f"cnc_{name}",
+                "counters": list(schema.counters),
+                "hists": list(schema.hists),
+                # layout-affecting (wide hists store more buckets):
+                # attached readers must reconstruct the same schema
+                "wide_hists": list(schema.wide_hists),
+                "ins": [ln for ln, _rel in ts.ins],
+                "outs": list(ts.outs),
+            }
+        links = {
+            ls.name: {
+                "depth": ls.depth,
+                "mcache": f"mc_{ls.name}",
+                "consumers": [
+                    {"tile": cons, "fseq": f"fs_{ls.name}_{cons}"}
+                    for cons, _rel in ls.consumers
+                ],
+            }
+            for ls in self.links.values()
+        }
+        self.wksp.publish_directory({
+            "tiles": tiles, "links": links,
+            "stem": self._loop_kw.get("stem") or self._resolve_stem(),
+        })
 
     def close(self) -> None:
         if self.wksp is not None:

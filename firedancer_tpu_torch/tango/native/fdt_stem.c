@@ -1,5 +1,5 @@
 /* fdt_stem.c — the port's copy of firedancer_tpu/tango/native/fdt_stem.c
- * without the bank handler and the elastic epoch watch.
+ * without the elastic epoch watch.
  * Implementation.  See fdt_stem.h for the design notes and reference
  * citations.  Original implementation: the burst loop composes
  * the SAME primitive ring ops the Python loop uses (fdt_mcache_drain /
@@ -13,6 +13,7 @@
 
 #include "fdt_stem.h"
 
+#include "fdt_bank.h"
 #include "fdt_net.h"
 #include "fdt_pack.h"
 #include "fdt_poh.h"
@@ -354,6 +355,197 @@ static int64_t h_dedup( stem_t * st, int64_t ii, fdt_frag_t const * f,
   if( jnl ) __atomic_store_n( &jnl[ DJ_PHASE ], 0UL, __ATOMIC_RELEASE );
   return n;
 }
+
+/* ==== bank handler (fused decode -> scan -> exec pipeline) ============== */
+
+/* args block (u64 words) — decode/scan scratch + table/journal wiring */
+#define BH_ROWS 0 /* u8 (max_n, stride) decode scratch */
+#define BH_STRIDE 1
+#define BH_SZS 2 /* u32[max_n] */
+#define BH_MAXN 3
+#define BH_OK 4
+#define BH_ISVOTE 5
+#define BH_FAST 6
+#define BH_COST 7
+#define BH_REWARDS 8
+#define BH_CULIM 9
+#define BH_TAGS 10
+#define BH_LAMPORTS 11
+#define BH_PAYER 12
+#define BH_SRC 13
+#define BH_DST 14
+#define BH_FEE 15
+#define BH_IDX 16    /* i64[max_n] */
+#define BH_STATUS 17 /* u8[max_n] */
+#define BH_OFEES 18  /* u64[max_n] */
+#define BH_TABLE 19
+#define BH_JOURNAL 20
+#define BH_ZEROCHECK 21
+#define BH_BANKID 22
+
+/* counter scratch indices (tiles/bank.py maps these to names) */
+#define BC_EXEC_MB 0
+#define BC_EXEC_TXNS 1
+#define BC_FAILED 2
+#define BC_FAST 3
+#define BC_FEES 4
+#define BC_MALFORMED 5
+#define BC_NATIVE 6
+
+/* python-owned completed-seq journal word (BankTable._JW_COMPLETED) */
+#define BJ_COMPLETED 31
+/* C undo-journal words read for the resume computation (fdt_bank.c) */
+#define BJ_TAG 0
+#define BJ_DONE 1
+
+int64_t fdt_bank_pipeline( uint8_t const * mb, int64_t mb_sz,
+                           uint64_t * a, uint64_t mb_tag,
+                           uint64_t * out_stats ) {
+  memset( out_stats, 0, 8 * sizeof( uint64_t ) );
+  uint64_t * jw = (uint64_t *)a[ BH_JOURNAL ];
+
+  /* replay below the completed-seq mark was applied in full by a
+     previous incarnation: republish, never re-execute (the same
+     wrap-safe compare as BankTable.already_complete) */
+  uint64_t comp = jw[ BJ_COMPLETED ];
+  if( comp && seq_delta( mb_tag, comp ) < 0 ) {
+    out_stats[ 0 ] = 3;
+    return 3;
+  }
+
+  uint8_t * rows = (uint8_t *)a[ BH_ROWS ];
+  int64_t stride = (int64_t)a[ BH_STRIDE ];
+  uint32_t * szs = (uint32_t *)a[ BH_SZS ];
+  int64_t max_n = (int64_t)a[ BH_MAXN ];
+  /* a microblock too large for the fixed native scratch is NOT
+     malformed — Python's growable scratch handles it */
+  if( mb_sz >= 8 ) {
+    int64_t n16 = (int64_t)( (uint16_t)mb[ 6 ] |
+                             ( (uint16_t)mb[ 7 ] << 8 ) );
+    if( n16 > max_n ) {
+      out_stats[ 0 ] = 2;
+      return 2;
+    }
+  }
+  int64_t n = fdt_mb_decode( mb, mb_sz, rows, stride, szs, max_n );
+  if( n < 0 ) {
+    out_stats[ 0 ] = 1;
+    return 1;
+  }
+  out_stats[ 1 ] = (uint64_t)n;
+
+  uint8_t * ok = (uint8_t *)a[ BH_OK ];
+  uint8_t * fast = (uint8_t *)a[ BH_FAST ];
+  fdt_txn_scan( rows, stride, 0, szs, n, 0, ok, (uint8_t *)a[ BH_ISVOTE ],
+                fast, (uint32_t *)a[ BH_COST ],
+                (uint64_t *)a[ BH_REWARDS ], (uint32_t *)a[ BH_CULIM ],
+                (uint64_t *)a[ BH_TAGS ], (uint64_t *)a[ BH_LAMPORTS ],
+                (uint32_t *)a[ BH_PAYER ], (uint32_t *)a[ BH_SRC ],
+                (uint32_t *)a[ BH_DST ], (uint32_t *)a[ BH_FEE ], 0, 0, 0,
+                0, 0, 0, 0, 0, 0, 0, 0 );
+
+  /* any non-fast txn (incl. parse failures) takes the general-executor
+     path: hand the WHOLE microblock back to Python untouched — the
+     journal's (tag, done) keeps an interrupted earlier attempt's fast
+     prefix exactly-once through the Python resume */
+  for( int64_t t = 0; t < n; t++ )
+    if( !fast[ t ] ) {
+      out_stats[ 0 ] = 2;
+      return 2;
+    }
+
+  int64_t * idx = (int64_t *)a[ BH_IDX ];
+  for( int64_t t = 0; t < n; t++ ) idx[ t ] = t;
+  uint8_t * status = (uint8_t *)a[ BH_STATUS ];
+  uint64_t * ofees = (uint64_t *)a[ BH_OFEES ];
+
+  /* the effective start fdt_bank_exec's journal adoption will use
+     (needed to count only what THIS call executes) */
+  int64_t start = 0;
+  if( jw[ BJ_TAG ] == mb_tag ) {
+    start = (int64_t)jw[ BJ_DONE ];
+    if( start > n ) start = n;
+  }
+  int64_t done = fdt_bank_exec(
+      rows, stride, idx, 0, n, (uint32_t *)a[ BH_PAYER ],
+      (uint32_t *)a[ BH_SRC ], (uint32_t *)a[ BH_DST ],
+      (uint32_t *)a[ BH_FEE ], (uint64_t *)a[ BH_LAMPORTS ],
+      (uint8_t *)a[ BH_TABLE ], (uint8_t *)jw, mb_tag,
+      (int64_t)a[ BH_ZEROCHECK ], status, ofees );
+  int64_t newly = done > start ? done - start : 0;
+  uint64_t failed = 0, fees = 0;
+  for( int64_t t = start; t < done; t++ ) {
+    if( status[ t ] != FDT_BANK_OK ) failed++;
+    fees += ofees[ t ];
+  }
+  out_stats[ 2 ] = (uint64_t)newly;
+  out_stats[ 3 ] = failed;
+  out_stats[ 4 ] = fees;
+  if( done < n ) {
+    /* MISS (cold key: funk resolve) or NONTRIVIAL (general executor):
+       Python-only work — progress so far is in the journal */
+    out_stats[ 0 ] = 2;
+    return 2;
+  }
+  /* fully executed: record the completed-seq mark (mark_complete).
+     Release so a recovery process that reads the mark also sees every
+     slot/journal store this batch made before it */
+  __atomic_store_n( &jw[ BJ_COMPLETED ], mb_tag + 1UL, __ATOMIC_RELEASE );
+  out_stats[ 0 ] = 0;
+  return 0;
+}
+
+static int64_t h_bank( stem_t * st, int64_t ii, fdt_frag_t const * f,
+                       int64_t n ) {
+  uint64_t * a = st->args;
+  uint8_t const * in_dc = (uint8_t const *)in_blk( st, ii )[ I_DCACHE ];
+  uint64_t stats[ 8 ];
+  for( int64_t k = 0; k < n; k++ ) {
+    uint8_t const * p = in_dc + (uint64_t)f[ k ].chunk * FDT_CHUNK_SZ;
+    uint64_t sz = f[ k ].sz;
+    if( sz < 8 ) { st->need_python = 1; return k; }
+    uint64_t handle = (uint64_t)p[ 0 ] | ( (uint64_t)p[ 1 ] << 8 ) |
+                      ( (uint64_t)p[ 2 ] << 16 ) |
+                      ( (uint64_t)p[ 3 ] << 24 );
+    uint64_t bank = (uint64_t)p[ 4 ] | ( (uint64_t)p[ 5 ] << 8 );
+    if( bank != a[ BH_BANKID ] ) { st->need_python = 1; return k; }
+    uint64_t sig = ( bank << 32 ) | handle;
+    int64_t rc =
+        fdt_bank_pipeline( p, (int64_t)sz, a, f[ k ].seq, stats );
+    if( rc == 2 ) {
+      /* a fast prefix may have executed before the stop — count it
+         NOW (the Python resume counts only what IT executes, and the
+         journal's done-mark keeps the split exactly-once) */
+      st->ctrs[ BC_FAST ] += stats[ 2 ];
+      st->ctrs[ BC_FAILED ] += stats[ 3 ];
+      st->ctrs[ BC_FEES ] += stats[ 4 ];
+      st->ctrs[ BC_NATIVE ] += stats[ 2 ];
+      st->need_python = 1;
+      return k;
+    }
+    if( rc == 1 ) {
+      /* malformed microblock: metered drop that still completes at
+         pack (handle/locks never leak); nothing goes to poh */
+      st->ctrs[ BC_MALFORMED ]++;
+      stem_publish( st, 0, sig, 0, 0, st->tspub );
+      continue;
+    }
+    if( rc == 0 ) {
+      st->ctrs[ BC_EXEC_MB ]++;
+      st->ctrs[ BC_EXEC_TXNS ] += stats[ 1 ];
+      st->ctrs[ BC_FAST ] += stats[ 2 ];
+      st->ctrs[ BC_FAILED ] += stats[ 3 ];
+      st->ctrs[ BC_FEES ] += stats[ 4 ];
+      st->ctrs[ BC_NATIVE ] += stats[ 2 ];
+    }
+    /* rc == 3 (already complete): republish only, no counters —
+       the dead incarnation already counted it in the shm metrics */
+    stem_publish( st, 1, sig, p, sz, st->tspub ); /* poh first */
+    stem_publish( st, 0, sig, 0, 0, st->tspub );  /* then free the bank */
+  }
+  return n;
+}
+
 
 /* ==== pack insert handler =============================================== */
 
@@ -725,11 +917,11 @@ int64_t fdt_stem_run( uint64_t * cfg, int64_t max_frags ) {
   st.need_python = 0;
   if( st.n_ins > FDT_STEM_MAX_INS || st.n_outs > FDT_STEM_MAX_OUTS )
     return -1;
-  /* the handlers and hooks this build carries; the bank id (and any
-     unknown id) is refused before anything is touched */
-  if( st.handler != FDT_STEM_H_DEDUP && st.handler != FDT_STEM_H_PACK &&
-      st.handler != FDT_STEM_H_POH && st.handler != FDT_STEM_H_SHRED &&
-      st.handler != FDT_STEM_H_NET )
+  /* the handlers and hooks this build carries; an unknown id is
+     refused before anything is touched */
+  if( st.handler != FDT_STEM_H_DEDUP && st.handler != FDT_STEM_H_BANK &&
+      st.handler != FDT_STEM_H_PACK && st.handler != FDT_STEM_H_POH &&
+      st.handler != FDT_STEM_H_SHRED && st.handler != FDT_STEM_H_NET )
     return -1;
   if( st.ac != 0 && st.ac != FDT_STEM_AC_PACK && st.ac != FDT_STEM_AC_POH &&
       st.ac != FDT_STEM_AC_SHRED && st.ac != FDT_STEM_AC_NET )
@@ -830,6 +1022,9 @@ int64_t fdt_stem_run( uint64_t * cfg, int64_t max_frags ) {
       switch( st.handler ) {
       case FDT_STEM_H_DEDUP:
         handled = h_dedup( &st, i, buf, n );
+        break;
+      case FDT_STEM_H_BANK:
+        handled = h_bank( &st, i, buf, n );
         break;
       case FDT_STEM_H_PACK:
         handled = h_pack( &st, i, buf, n );

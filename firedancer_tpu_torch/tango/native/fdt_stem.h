@@ -1,14 +1,13 @@
 /* fdt_stem.h — GIL-released native inner loop for data-plane tiles.
  *
  * The port's copy of firedancer_tpu/tango/native/fdt_stem.h, trimmed to
- * the handlers the port's ingress and leader paths can use: dedup, pack
- * (insert, completions and the fdt_pack_sched after-credit hook), PoH,
- * shred and net (fdt_net.c: the tx burst and the rx after-credit hook).
- * The bank handler (fdt_bank_pipeline over a shared account table) is not
- * carried: its id stays reserved and fdt_stem_run rejects a config block
- * that names it (returns -1).  The
- * elastic epoch watch (cfg words 14/15) is not carried either; the words
- * stay in the layout, unused.
+ * the handlers the port's ingress, leader and validator paths use: dedup,
+ * bank (fdt_bank_pipeline over the shared account table), pack (insert,
+ * completions and the fdt_pack_sched after-credit hook), PoH, shred and
+ * net (fdt_net.c: the tx burst and the rx after-credit hook).  The
+ * elastic epoch watch (cfg words 14/15) is not carried; the words stay in
+ * the layout, unused, and fdt_stem_run rejects an unknown handler id
+ * (returns -1).
  *
  * Reference model (behavior contract only; implementation original):
  * fd_stem/fd_mux run the whole tile hot loop in C — poll the in
@@ -38,6 +37,12 @@
  *     (arm slot 0 + out-seq BEFORE the insert, survivor-list rewrite to
  *     the inactive slot on zero-tag pass-throughs, phase cleared after
  *     the publish).
+ *   bank — fdt_bank_pipeline: fdt_mb_decode + fdt_txn_scan +
+ *     fdt_bank_exec fused into one call per microblock.  Anything the
+ *     table path cannot express (a non-fast txn, a cold key, a
+ *     NONTRIVIAL account) hands the frag back to Python UNCONSUMED — the
+ *     journal's (tag, done) resume makes the partial fast prefix
+ *     exactly-once.
  *   pack — the insert path: gather + txn_scan(+bitsets) + free-slot
  *     scatter into the pack engine's dense arrays.  The eviction path
  *     (pool full) bails to Python before mutating anything.  Completion
@@ -66,9 +71,7 @@
 
 #define FDT_STEM_MAGIC 0xf17eda2ce57e0001UL
 
-/* handler ids (cfg word 1) — the JAX package's numbering.  BANK is
-   reserved: the port carries no handler for it, and fdt_stem_run rejects
-   a config block that names it. */
+/* handler ids (cfg word 1) — the JAX package's numbering */
 #define FDT_STEM_H_DEDUP 1
 #define FDT_STEM_H_BANK 2
 #define FDT_STEM_H_PACK 3
@@ -236,5 +239,22 @@ void fdt_stem_out_emit_at( uint64_t * ob, uint64_t sig, uint32_t chunk,
    block (bad magic, too many links, or a handler or hook id the port
    does not carry). */
 int64_t fdt_stem_run( uint64_t * cfg, int64_t max_frags );
+
+/* Fused bank fast path: decode one microblock + scan-classify + execute
+   all-fast batches through fdt_bank_exec, in one call.  bargs is the
+   bank handler's args block (see fdt_stem.c BH_*): decode/scan
+   scratch arrays plus the shared account table, the per-bank undo
+   journal (whose python-owned word 31 carries the completed-seq mark),
+   and the zero_check feature flag.  mb_tag is the carrying frag's seq —
+   the crash-resume journal key, so a SIGKILL mid-microblock resumes
+   through the SAME (tag, txns-done) protocol the Python path uses.
+   out_stats u64[8]: [0] rc (0 executed, 1 malformed, 2 needs the
+   Python path — nothing consumed beyond the journal's own progress,
+   3 already complete: republish without re-executing), [1] txn count,
+   [2] newly executed, [3] newly failed, [4] fees collected.
+   Returns rc. */
+int64_t fdt_bank_pipeline( uint8_t const * mb, int64_t mb_sz,
+                           uint64_t * bargs, uint64_t mb_tag,
+                           uint64_t * out_stats );
 
 #endif /* FDT_STEM_H */

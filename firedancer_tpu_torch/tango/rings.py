@@ -3,15 +3,16 @@
 A copy of firedancer_tpu/tango/rings.py, trimmed to what the thread
 runtime needs: `Workspace`, `MCache`, `DCache`, `FSeq`, `CNC`, `TCache`,
 `cr_avail`, the wrap-safe `seq_*` helpers, the rejoin helpers, the native
-`trace_*` helpers and the native stem (`StemSpec`, `Stem`, the `STEM_*`
-ids).  The library is built from the port's own copies of fdt_tango.c,
-fdt_sha512.c, fdt_sha256.c, fdt_trace.c, fdt_pack.c, fdt_stem.c,
-fdt_poh.c, fdt_shred.c and fdt_net.c (tango/native/) by utils/cbuild.py
-into the git-ignored _build/, at first use, and loaded with ctypes.CDLL, so every
-call releases the GIL; `_load` injects the SHA-512 and SHA-256 tables and
-the pack cost model's constants into this library's own statics.  The
-stem's bank handler, the ABI digest and the process runtime's workspace
-attach are not ported yet.
+`trace_*` helpers, the native stem (`StemSpec`, `Stem`, the `STEM_*`
+ids) and the named workspace's attach surface (`publish_directory`,
+`attach`).  The library is built from the port's own copies of
+fdt_tango.c, fdt_sha512.c, fdt_sha256.c, fdt_trace.c, fdt_pack.c,
+fdt_bank.c, fdt_stem.c, fdt_poh.c, fdt_shred.c and fdt_net.c
+(tango/native/) by utils/cbuild.py into the git-ignored _build/, at first
+use, and loaded with ctypes.CDLL, so every call releases the GIL; `_load`
+injects the SHA-512 and SHA-256 tables and the pack cost model's
+constants into this library's own statics.  The stem's ABI digest and the
+process runtime are not ported yet.
 
 Objects live in caller-provided buffers: a numpy array for in-process
 topologies, or an mmap of a /dev/shm file (`Workspace(name=...)`, under the
@@ -50,6 +51,7 @@ _NATIVE_SOURCES = [
     _HERE / "native" / "fdt_sha256.c",
     _HERE / "native" / "fdt_trace.c",
     _HERE / "native" / "fdt_pack.c",
+    _HERE / "native" / "fdt_bank.c",
     _HERE / "native" / "fdt_stem.c",
     _HERE / "native" / "fdt_poh.c",
     _HERE / "native" / "fdt_shred.c",
@@ -155,6 +157,20 @@ def _load() -> ct.CDLL:
         "fdt_mb_encode": (i64, [vp, i64, vp, vp, i64, u32, u32, vp, i64]),
         "fdt_mb_decode": (i64, [vp, i64, vp, i64, vp, i64]),
         "fdt_pack_sched": (i64, [vp, vp, i64, i64, i64, u64, vp]),
+        # the shared account table and its batch executor (fdt_bank.c),
+        # and the stem's fused bank body (fdt_stem.c)
+        "fdt_bank_tab_footprint": (u64, [u64]),
+        "fdt_bank_tab_new": (i32, [vp, u64]),
+        "fdt_bank_tab_slots": (u64, [vp]),
+        "fdt_bank_tab_put": (i64, [vp, vp, i64, u64, i64]),
+        "fdt_bank_tab_get": (i64, [vp, vp, vp]),
+        "fdt_bank_exec": (
+            i64, [vp, i64, vp, i64, i64, vp, vp, vp, vp, vp, vp, vp, u64, i64, vp, vp],
+        ),
+        "fdt_bank_commit": (i64, [vp, vp, vp, vp, vp, vp, i64]),
+        "fdt_bank_commit_ack": (None, [vp, vp, vp, i64]),
+        "fdt_bank_recover": (i64, [vp, vp, vp]),
+        "fdt_bank_pipeline": (i64, [vp, i64, vp, u64, vp]),
         "fdt_stem_cfg_words": (u64, []),
         "fdt_stem_run": (i64, [vp, i64]),
         "fdt_stem_out_cr": (i64, [vp]),
@@ -330,6 +346,45 @@ class Workspace:
         off, fp = self._allocs[name]
         return self.buf[off : off + fp]
 
+    # -- attach from another process (named workspaces) -------------------
+
+    def _dir_path(self) -> str:
+        assert self.name is not None, "directory needs a named workspace"
+        return f"{SHM_PREFIX}{self.name}.dir"
+
+    def publish_directory(self, extra: dict | None = None) -> None:
+        """Persist the alloc table (+ arbitrary JSON metadata) beside the
+        workspace file so another process can attach() and find objects by
+        name (the reference keeps the directory in the wksp itself,
+        src/util/wksp; a JSON sidecar keeps the bump allocator trivial)."""
+        import json
+
+        doc = {
+            "size": self.size,
+            "allocs": {k: list(v) for k, v in self._allocs.items()},
+            "extra": extra or {},
+        }
+        # write-then-rename: a concurrent attach (a monitor) never reads a
+        # truncated in-place rewrite
+        tmp = self._dir_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, self._dir_path())
+
+    @classmethod
+    def attach(cls, name: str) -> tuple["Workspace", dict]:
+        """Map an existing named workspace read-write and load its
+        directory.  -> (workspace, extra metadata).  A workspace that was
+        never published raises FileNotFoundError."""
+        import json
+
+        with open(f"{SHM_PREFIX}{name}.dir") as f:
+            doc = json.load(f)
+        ws = cls(doc["size"], name=name)
+        ws._allocs = {k: tuple(v) for k, v in doc["allocs"].items()}
+        ws._off = ws.size  # attached views must not allocate over live data
+        return ws, doc["extra"]
+
     def close(self) -> None:
         if self._mm is not None:
             self.buf = None
@@ -344,12 +399,14 @@ class Workspace:
             self._mm = None
 
     def unlink(self) -> None:
+        """Close, and remove the workspace file with its directory."""
         self.close()
         if self.name is not None:
-            try:
-                os.unlink(self._path)
-            except FileNotFoundError:
-                pass
+            for path in (self._path, self._dir_path(), self._dir_path() + ".tmp"):
+                try:
+                    os.unlink(path)
+                except FileNotFoundError:
+                    pass
 
 
 # ---------------------------------------------------------------------------
@@ -790,8 +847,7 @@ def trace_read_clock(block: np.ndarray) -> int:
 # loop (disco/mux.py) owns when the stem runs; tiles describe their
 # handler with a StemSpec (Tile.native_handler).
 
-#: handler ids (fdt_stem.h FDT_STEM_H_*, the JAX package's numbering).
-#: The port carries no bank handler: a StemSpec naming it raises.
+#: handler ids (fdt_stem.h FDT_STEM_H_*, the JAX package's numbering)
 STEM_H_DEDUP, STEM_H_BANK, STEM_H_PACK = 1, 2, 3
 STEM_H_POH, STEM_H_SHRED, STEM_H_NET = 4, 5, 6
 
@@ -801,8 +857,8 @@ STEM_H_POH, STEM_H_SHRED, STEM_H_NET = 4, 5, 6
 STEM_AC_PACK, STEM_AC_POH, STEM_AC_SHRED, STEM_AC_NET = 1, 2, 3, 4
 
 #: the handler and hook ids this build's fdt_stem_run dispatches
-STEM_HANDLERS = (STEM_H_DEDUP, STEM_H_PACK, STEM_H_POH, STEM_H_SHRED,
-                 STEM_H_NET)
+STEM_HANDLERS = (STEM_H_DEDUP, STEM_H_BANK, STEM_H_PACK, STEM_H_POH,
+                 STEM_H_SHRED, STEM_H_NET)
 STEM_HOOKS = (STEM_AC_PACK, STEM_AC_POH, STEM_AC_SHRED, STEM_AC_NET)
 
 #: stem flags (cfg word 13): manual-credit tile — skip the global
@@ -860,19 +916,21 @@ class StemSpec:
     per burst by the run loop.  `ready` (optional) gates the stem per
     iteration — a tile with host-side state the fast path cannot
     express yet (dedup's pending replay amnesty) returns False to stay
-    on the Python loop until it drains.  A bank handler id (or any id
-    fdt_stem_run does not dispatch) raises ValueError."""
+    on the Python loop until it drains.  `after_burst` (optional) runs
+    after the deltas are applied (bank's deferred-commit cadence).  An id
+    fdt_stem_run does not dispatch raises ValueError."""
 
     def __init__(self, handler: int, args: np.ndarray,
                  counters: tuple = (), keepalive: tuple = (),
                  native_ins: tuple | None = None,
-                 ready=None, cap: int | None = None,
+                 ready=None, after_burst=None, cap: int | None = None,
                  ac_handler: int = 0, ac_args: np.ndarray | None = None,
                  manual: bool = False):
         if handler not in STEM_HANDLERS:
             raise ValueError(
                 f"stem handler id {handler}: the port's stem carries "
-                f"dedup, pack, poh, shred and net only (ids {STEM_HANDLERS})"
+                f"dedup, bank, pack, poh, shred and net only (ids "
+                f"{STEM_HANDLERS})"
             )
         if ac_handler and ac_handler not in STEM_HOOKS:
             raise ValueError(
@@ -885,6 +943,7 @@ class StemSpec:
         self.keepalive = keepalive
         self.native_ins = native_ins
         self.ready = ready
+        self.after_burst = after_burst
         #: max frags per burst the args block's scratch supports; the
         #: Stem clamps its own capacity to it (None = no tile bound)
         self.cap = cap

@@ -48,7 +48,8 @@ def test_port_has_files():
                    "tango/native/fdt_sha256.h", "tango/native/fdt_poh.c",
                    "tango/native/fdt_poh.h", "tango/native/fdt_shred.c",
                    "tango/native/fdt_shred.h", "tango/native/fdt_net.c",
-                   "tango/native/fdt_net.h"):
+                   "tango/native/fdt_net.h", "tango/native/fdt_bank.c",
+                   "tango/native/fdt_bank.h"):
         assert (ROOT / "firedancer_tpu_torch" / native).exists()
     for want in ("chip_smoke.py", "verify_core.py", "msm.py", "pipeline.py", "kbuild.py",
                  "sha256.py", "poh.py", "gf256.py", "reedsol.py", "sign.py",
@@ -65,7 +66,12 @@ def test_port_has_files():
                  "waltz/udpsock.py", "waltz/ip.py", "waltz/x509.py", "waltz/tls.py",
                  "waltz/quic.py", "waltz/admission.py", "ballet/aes.py",
                  "ballet/x25519.py", "ballet/chacha20.py", "tango/lru.py",
-                 "tiles/net.py", "tiles/quic.py"):
+                 "tiles/net.py", "tiles/quic.py", "funk/funk.py", "flamenco/accounts.py",
+                 "flamenco/features.py", "flamenco/sysvar.py", "flamenco/runtime.py",
+                 "flamenco/vm.py", "ballet/murmur3.py", "ballet/sbpf.py",
+                 "ballet/secp256k1.py", "ballet/http.py", "tiles/metric.py",
+                 "tiles/rpc.py", "utils/log.py", "app/config.py", "app/fdtctl.py",
+                 "app/monitor.py"):
         assert f"firedancer_tpu_torch/{want}" in rel
 
 
@@ -99,6 +105,7 @@ def test_native_source_includes_only_port_files(path):
 
 def _entry_calls():
     from firedancer_tpu_torch import bench, entry
+    from firedancer_tpu_torch.app import config as C
     from firedancer_tpu_torch.ballet import bmtree as BM
     from firedancer_tpu_torch.ballet import hmac as H
     from firedancer_tpu_torch.disco import fec_resolver as FR
@@ -165,6 +172,9 @@ def _entry_calls():
         "shred_merkle_root": lambda: FR.shred_merkle_root(None, b""),
         "ShredTile": lambda: ShredTile(),
         "StoreTile": lambda: StoreTile("/nonexistent/never-made"),
+        "build_validator_topology": lambda: C.build_validator_topology(
+            C.parse(""), key, "/nonexistent/never-made"),
+        "build_ingress_topology": lambda: C.build_ingress_topology(C.parse(""), key),
         "select_noconflict": lambda: pack_select.select_noconflict(
             z((2, 1), np.uint64), z((2, 1), np.uint64), z(1, np.uint64),
             z(1, np.uint64), z(2, np.int64), 10, 2),
@@ -184,6 +194,7 @@ ENTRY_POINTS = sorted([
     "bmtree_hash_leaves", "bmtree_layers_of", "bmtree_commit",
     "bmtree_inclusion_proof", "bmtree_root_from_proof", "bmtree_verify_inclusion",
     "Shredder", "FecResolver", "shred_merkle_root", "ShredTile", "StoreTile",
+    "build_validator_topology", "build_ingress_topology",
 ])
 
 

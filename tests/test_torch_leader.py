@@ -195,8 +195,15 @@ def test_leader_paced_fills_no_pack_buffer(monkeypatch):
 
 
 def test_leader_refuses_funk_and_elastic():
-    with pytest.raises(NotImplementedError, match="funk"):
-        BankTile(0, funk=object())
+    """A bank backed by funk is built (its shared account table declared);
+    the elastic drain and elastic shard groups are still refused."""
+    from firedancer_tpu_torch.flamenco.runtime import BankTable
+    from firedancer_tpu_torch.funk import Funk
+
+    bank = BankTile(0, funk=Funk(), table_slots=256)
+    assert bank.shared_wksp_footprints() == {"banktab": BankTable.footprint(256)}
+    assert BankTile(0).shared_wksp_footprints() == {}
+    assert not hasattr(BankTile, "elastic_drained")
     topo = Topology()
     with pytest.raises(NotImplementedError, match="elastic"):
         topo.declare_shards("bank", ["bank0", "bank1"], producer="pack")

@@ -389,8 +389,10 @@ def test_bank_decode_rejects_malformed():
     trows, tszs = bank._decode(buf)
     assert len(trows) == 3 and (tszs == szs).all()
     assert bank._decode(buf[:-1]) is None and bank._decode(buf[:5]) is None
-    with pytest.raises(NotImplementedError, match="funk"):
-        BankTile(1, funk=object())
+    from firedancer_tpu_torch.funk import Funk
+
+    funk_bank = BankTile(1, funk=Funk())
+    assert funk_bank.funk is not None and funk_bank._decode(buf[:5]) is None
 
 
 # ---------------------------------------------------------------------------

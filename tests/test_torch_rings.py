@@ -39,7 +39,7 @@ def test_port_library_is_its_own_build():
     assert so.exists() and so.is_relative_to(cbuild.BUILD)
     assert [p.name for p in R._NATIVE_SOURCES] == [
         "fdt_tango.c", "fdt_sha512.c", "fdt_sha256.c", "fdt_trace.c", "fdt_pack.c",
-        "fdt_stem.c", "fdt_poh.c", "fdt_shred.c", "fdt_net.c"]
+        "fdt_bank.c", "fdt_stem.c", "fdt_poh.c", "fdt_shred.c", "fdt_net.c"]
     assert R._Library._cdll._name == str(so) != RJ._lib._name
     # named workspaces live under the port's own /dev/shm prefix, which the
     # JAX package's fdt_wksp_* globs never match

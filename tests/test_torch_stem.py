@@ -438,8 +438,8 @@ def test_cfg_layout_and_ids_pinned_to_jax():
     assert len(names) > 60
     for n in names:
         assert getattr(RT, n) == getattr(RJ, n), n
-    assert RT.STEM_HANDLERS == (RT.STEM_H_DEDUP, RT.STEM_H_PACK, RT.STEM_H_POH,
-                                RT.STEM_H_SHRED, RT.STEM_H_NET)
+    assert RT.STEM_HANDLERS == (RT.STEM_H_DEDUP, RT.STEM_H_BANK, RT.STEM_H_PACK,
+                                RT.STEM_H_POH, RT.STEM_H_SHRED, RT.STEM_H_NET)
     assert RT.STEM_HOOKS == (RT.STEM_AC_PACK, RT.STEM_AC_POH, RT.STEM_AC_SHRED,
                              RT.STEM_AC_NET)
 
@@ -448,11 +448,15 @@ def test_cfg_layout_and_ids_pinned_to_jax():
     ("handler", RT.STEM_H_BANK), ("handler", 8), ("handler", 9),
     ("hook", 6), ("hook", 7)])
 def test_bank_and_net_ids_are_refused(word, value):
-    """The port carries no bank handler (the net handler and hook are
-    carried): a StemSpec naming the bank id or an id no stem dispatches
-    raises, and fdt_stem_run rejects a cfg block that names one (Stem.run
-    raises) before it drains anything."""
+    """The port carries the bank and net handlers and the net hook: a
+    StemSpec naming the bank id is accepted, and one naming an id no stem
+    dispatches raises, and fdt_stem_run rejects a cfg block that names one
+    (Stem.run raises) before it drains anything."""
     args = np.zeros(8, np.uint64)
+    if (word, value) == ("handler", RT.STEM_H_BANK):
+        spec = RT.StemSpec(value, args)
+        assert spec.handler == RT.STEM_H_BANK and value in RT.STEM_HANDLERS
+        return
     with pytest.raises(ValueError, match="port's stem"):
         if word == "handler":
             RT.StemSpec(value, args)

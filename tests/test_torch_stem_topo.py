@@ -92,17 +92,19 @@ def test_leader_native_on_cpu(counted, select):
         assert st["pack"]["py_credit"] <= c["pack"]["blocks"]
 
 
-class _BankIdTile(SinkTile):
-    """A tile whose native handler names the bank handler id."""
+class _UnknownIdTile(SinkTile):
+    """A tile whose native handler names an id no stem dispatches."""
 
     def native_handler(self, ctx):
-        return R.StemSpec(R.STEM_H_BANK, np.zeros(8, np.uint64))
+        return R.StemSpec(9, np.zeros(8, np.uint64))
 
 
 def test_refused_stem_modes_and_handlers():
     """An unknown stem mode raises at Topology(), at start() and in the run
-    loop; a native handler naming the bank handler id fails the tile's boot
-    under stem="native", and the Python loop never asks for it."""
+    loop; a native handler naming an id no stem dispatches fails the tile's
+    boot under stem="native", and the Python loop never asks for it.  The
+    bank handler id is one the port's stem dispatches."""
+    assert R.STEM_H_BANK in R.STEM_HANDLERS
     with pytest.raises(ValueError, match="stem mode"):
         Topology(stem="bogus")
     with pytest.raises(ValueError, match="stem mode"):
@@ -110,7 +112,7 @@ def test_refused_stem_modes_and_handlers():
     topo = Topology(stem="native")
     topo.link("l", depth=64, mtu=64)
     topo.tile(SinkTile(name="src"), outs=["l"])
-    topo.tile(_BankIdTile(name="bad"), ins=[("l", True)])
+    topo.tile(_UnknownIdTile(name="bad"), ins=[("l", True)])
     try:
         with pytest.raises(ValueError, match="stem mode"):
             topo.start(stem="bogus")
@@ -120,10 +122,10 @@ def test_refused_stem_modes_and_handlers():
         topo = Topology(stem=stem)
         topo.link("l", depth=64, mtu=64)
         topo.tile(SinkTile(name="src"), outs=["l"])
-        topo.tile(_BankIdTile(name="bad"), ins=[("l", True)])
+        topo.tile(_UnknownIdTile(name="bad"), ins=[("l", True)])
         try:
             if raises:
-                with pytest.raises(ValueError, match="dedup, pack, poh, shred and net"):
+                with pytest.raises(ValueError, match="dedup, bank, pack, poh, shred and net"):
                     topo.start(idle_sleep_s=IDLE_S)
             else:
                 topo.start(idle_sleep_s=IDLE_S)

@@ -371,6 +371,22 @@ def test_entry_ingress_wire_on_cpu(counted, stem):
     assert r["pool"]["tags"].shape == (16,)
 
 
+def test_entry_ingress_wire_quic_part_on_cpu(counted, monkeypatch):
+    """chip_smoke.wire_traffic's QUIC part (the pool's first WIRE_QUIC_TXNS
+    rows) behind whole legacy passes: check_wire counts the part's
+    corrupt and good rows once more."""
+    monkeypatch.setattr(CS, "WIRE_QUIC_TXNS", 5)
+    monkeypatch.setattr(CS, "WIRE_CLIENTS", 2)
+    pool = make_txn_pool(16, corrupt_frac=0.25, seed=5)
+    assert not pool[2][:5].all() and pool[2][:5].any()
+    traffic, frags = CS.wire_traffic(pool, 2)
+    assert frags == 16 * 2 + 5
+    r = entry.ingress(pool, max_lanes=LANES, idle_sleep_s=IDLE_S, device="cpu",
+                      front="wire", traffic=traffic, identity_secret=IDENTITY)
+    CS.check_wire(r, counted[0], 16 * 2, hostpath.public_from_secret(IDENTITY))
+    assert r["wire"]["rx_txns_quic"] == 5
+
+
 # ---------------------------------------------------------------------------
 # UdpBlaster into the net tile
 
