@@ -1,9 +1,11 @@
 """TOML config -> ingress topology.
 
-A copy of firedancer_tpu/app/config.py for the port's thread runtime.
-Refused rather than ignored: `[slo]` (disco/slo.py), `[elastic]`
-(disco/elastic.py) and `[topo] runtime = "process"` raise
-NotImplementedError, since the port has none of those modules yet.  Both
+A copy of firedancer_tpu/app/config.py.  `[topo] runtime = "process"`
+runs one OS process per tile (disco/topo.py; the metric and RPC tiles
+stay threads in the parent), and both builders pass it through, so
+`fdtctl run` takes it from the TOML.  Refused rather than ignored:
+`[slo]` (disco/slo.py) and `[elastic]` (disco/elastic.py) raise
+NotImplementedError, since the port has neither module yet.  Both
 builders take `device` (None: the CUDA card, raising "no CUDA device" on a
 host without one; "cpu": the plain versions, for tests) and hand it to the
 verify tile, pack's device select, the shredder and the store's
@@ -18,7 +20,7 @@ Config shape (all keys optional; defaults below):
 
     name = "fdt"                     # workspace name (monitor attaches)
     [topo]
-    runtime = "thread"               # the only runtime the port has
+    runtime = "thread"               # or "process": one OS process per tile
     stem = "python"                  # "native" = GIL-released tile inner loop
     [tiles.quic]
     quic_port = 0                    # 0 = ephemeral
@@ -85,8 +87,8 @@ from ..tiles.verify import VerifyTile
 @dataclass
 class Config:
     name: str = "fdt"
-    #: tile runtime from `[topo] runtime`: "thread" or None (the thread
-    #: runtime; "process" is refused by parse)
+    #: tile runtime from `[topo] runtime`: "thread" | "process" | None
+    #: (the thread runtime)
     runtime: str | None = None
     #: ingress admission policy (waltz/admission.py AdmissionConfig)
     #: from the `[tiles.quic]` admission keys; None = permissive
@@ -141,20 +143,15 @@ _NOT_PORTED = {"slo": "asserted SLOs (disco/slo.py)",
 
 
 def parse(text: str) -> Config:
-    """TOML text -> Config.  `[slo]`, `[elastic]` and `[topo] runtime =
-    "process"` raise NotImplementedError."""
+    """TOML text -> Config.  `[slo]` and `[elastic]` raise
+    NotImplementedError; an unknown `[topo] runtime` is refused by the
+    builders' Topology."""
     doc = tomllib.loads(text)
     for key, what in _NOT_PORTED.items():
         if key in doc:
             raise NotImplementedError(
                 f"config section [{key}]: {what} is not ported yet"
             )
-    runtime = doc.get("topo", {}).get("runtime")
-    if runtime not in (None, "thread"):
-        raise NotImplementedError(
-            f"[topo] runtime = {runtime!r}: the port has the thread runtime "
-            f"only"
-        )
     t = doc.get("tiles", {})
     q = t.get("quic", {})
     v = t.get("verify", {})
@@ -168,7 +165,7 @@ def parse(text: str) -> Config:
     } & set(q)
     return Config(
         name=doc.get("name", "fdt"),
-        runtime=runtime,
+        runtime=doc.get("topo", {}).get("runtime"),
         stem=doc.get("topo", {}).get("stem"),
         quic_admission=(
             AdmissionConfig.from_dict(q) if admission_keys else None

@@ -6,10 +6,12 @@ every link's fseq, render the diffs.  This build attaches to the named
 workspace via its published directory (tango.rings.Workspace.attach) and
 reads the same single-writer regions the tiles write lock-free.
 
-A copy of firedancer_tpu/app/monitor.py without its SLO, profile and
-elastic branches: the port has no asserted SLOs, no run-loop profiler and
+A copy of firedancer_tpu/app/monitor.py without its SLO, flight and
+elastic branches: the port has no asserted SLOs, no flight recorder and
 no elastic shards, so a manifest that carries one of those keys raises
-NotImplementedError naming the module.
+NotImplementedError naming the module.  A topology built with
+enable_profile() publishes its profiler regions, and the monitor renders
+one `prof:` sub-row per tile (disco/profile.py profile_row).
 """
 
 from __future__ import annotations
@@ -35,8 +37,8 @@ _SIGNAMES = {0: "BOOT", 1: "RUN", 2: "HALT", 3: "FAIL"}
 
 #: manifest keys of layers the port has not ported, with the module each
 #: waits for
-_NOT_PORTED = {"slo": "disco/slo.py", "profile": "disco/profile.py",
-               "flight": "disco/flight.py", "elastic": "disco/elastic.py"}
+_NOT_PORTED = {"slo": "disco/slo.py", "flight": "disco/flight.py",
+               "elastic": "disco/elastic.py"}
 
 
 @dataclass
@@ -95,6 +97,17 @@ class Monitor:
             )
         self.links = extra.get("links", {})
         self.stem_mode = extra.get("stem")
+        # per-tile run-loop profiler regions (disco/profile.py), when
+        # the topology was built with enable_profile()
+        self.profiles: dict[str, Metrics] = {}
+        prof = extra.get("profile")
+        if prof is not None:
+            from ..disco.profile import PROFILE_SCHEMA
+
+            for name, alloc in prof.get("tiles", {}).items():
+                self.profiles[name] = Metrics(
+                    self.wksp.view(alloc), PROFILE_SCHEMA
+                )
 
     #: heartbeat older than this is flagged as stale (reference monitor
     #: renders heartbeat diffs; a stuck tile stops beating long before
@@ -149,6 +162,13 @@ class Monitor:
                 "produced": prod_seq,
                 "consumers": seqs,
             }
+        # profiler summaries ride the snapshot (disco/profile.py)
+        if self.profiles:
+            from ..disco.profile import profile_row
+
+            for name, pm in self.profiles.items():
+                if name in out:
+                    out[name]["profile"] = profile_row(pm)
         return out
 
     @staticmethod
@@ -362,6 +382,19 @@ class Monitor:
                     + f" stem_frags={srow['stem_frags']:,}"
                     f" py_frags={srow['py_frags']:,}"
                     + (" PINNED" if srow["pinned"] else "")
+                )
+            # run-loop profile sub-row (enable_profile topologies):
+            # GIL-wait share, phase split, scheduler-lag p99
+            prof = row.get("profile")
+            if prof and prof.get("samples"):
+                lines.append(
+                    f"{'':>10}   prof: gil_wait "
+                    f"{prof['gil_wait_frac'] * 100:.1f}% | frag "
+                    f"{prof['frag_frac'] * 100:.0f}% hk "
+                    f"{prof['hk_frac'] * 100:.0f}% credit "
+                    f"{prof['credit_frac'] * 100:.0f}% bp "
+                    f"{prof.get('bp_frac', 0) * 100:.0f}% | sched_lag "
+                    f"p99={prof['sched_lag_p99_us']:,.0f}us"
                 )
             # ingress-defense sub-row (hardened quic tiles): shed level
             # + the drop ledger by reason, so "where did the flood die"

@@ -1,8 +1,7 @@
 """Shared-memory metrics regions, one per tile.
 
-A copy of firedancer_tpu/disco/metrics.py, without the readers of its
-SLO and profile layers (`merge_hists`, `hist_frac_above`; not ported
-yet).
+A copy of firedancer_tpu/disco/metrics.py, without the reader of its
+SLO layer (`hist_frac_above`; not ported yet).
 
 Reference model: src/disco/metrics/ — an XML schema compiled to typed
 per-tile offset tables, written lock-free by the owning tile via
@@ -301,6 +300,22 @@ def hist_percentile(h: dict, q: float) -> float:
     # unreachable while rank <= mass; keep the clamp for safety
     b, n = occupied[-1]
     return float(1 << (b + 1))
+
+
+def merge_hists(hs: list[dict]) -> dict:
+    """Sum Metrics.hist() snapshots bucket-wise (counts, sums, and a
+    buckets vector as long as the longest input) — the primitive behind
+    profile aggregation (disco/profile.py)."""
+    out = {"count": 0, "sum": 0, "buckets": []}
+    for h in hs:
+        out["count"] += h.get("count", 0)
+        out["sum"] += h.get("sum", 0)
+        bk = h.get("buckets", [])
+        if len(bk) > len(out["buckets"]):
+            out["buckets"] += [0] * (len(bk) - len(out["buckets"]))
+        for i, n in enumerate(bk):
+            out["buckets"][i] += n
+    return out
 
 
 def hist_delta(cur: dict, prev: dict | None) -> dict:

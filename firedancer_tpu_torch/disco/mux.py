@@ -1,16 +1,22 @@
 """The generic tile run loop — the analog of fd_mux_tile.
 
-A copy of firedancer_tpu/disco/mux.py for the port's thread runtime: the
-Python frag path of `run_loop` (with the manual-credit gate of a ring
-cycle, `Tile.manual_credits`), the native stem's branch
+A copy of firedancer_tpu/disco/mux.py for the port's thread and process
+runtimes: the Python frag path of `run_loop` (with the manual-credit gate
+of a ring cycle, `Tile.manual_credits`), the native stem's branch
 (`run_loop(stem="native")`: a tile's `native_handler` runs whole bursts in
 one GIL-released fdt_stem_run call, with `_arm_stem_trace` and
 `_stem_apply`), the per-link latency attribution and the span-event trace
-points, the post-HALT `drain_straggler_ins`, and the topology-wide
-shared regions (`MuxCtx.shared`, `Tile.shared_wksp_footprints`).  The
-hooks of modules the port does not have yet (fault injection and its
-consult points, the run-loop profiler, elastic shard maps and the stem's
-epoch watch) are left out; they come back with those modules.
+points, the run-loop profiler's hooks (`MuxCtx.profiler`:
+disco/profile.py's phase wall and thread CPU on the 1-in-16 sampled
+iterations, the housekeeping lag and the idle sleeps; a stem burst is
+timed inside the frag phase), the post-HALT `drain_straggler_ins`, the
+topology-wide shared regions (`MuxCtx.shared`,
+`Tile.shared_wksp_footprints`), and the process runtime's side of a tile
+(`Tile.proc_safe`, and `MuxCtx.arena`, the child's shm sub-allocator
+that `MuxCtx.alloc` goes through).  The hooks of modules the port does
+not have yet (fault injection and its consult points, elastic shard maps
+and the stem's epoch watch) are left out; they come back with those
+modules.
 
 Reference model: src/disco/mux/fd_mux.c:90-707 — a loop interleaving
 housekeeping events (heartbeat, flow-control publish/receive, metrics
@@ -198,6 +204,13 @@ class MuxCtx:
         #: the topology's shared workspace — tiles allocate observable
         #: state (tcaches etc.) here
         self.wksp = wksp
+        #: process runtime: a tile-private shm sub-allocator
+        #: (tango.rings.WkspArena) that replaces direct workspace
+        #: allocation — an ATTACHED workspace cannot allocate (the bump
+        #: cursor is host-side state two children would race), so each
+        #: child carves its own pre-sized arena instead.  None in the
+        #: thread runtime.
+        self.arena = None
         self.credits = 0  # refreshed by the loop before each callback round
         #: set to abandon this incarnation (the loop raises TileInterrupted)
         self.interrupt = threading.Event()
@@ -205,6 +218,10 @@ class MuxCtx:
         #: topology when tracing is enabled; None keeps every trace
         #: point a single attribute check
         self.tracer = None
+        #: run-loop profiler (disco/profile.py TileProfiler), installed
+        #: by the topology when profiling is enabled; None keeps every
+        #: profile point a single attribute check
+        self.profiler = None
         #: counts incarnations so on_boot can distinguish join-vs-init of
         #: workspace state that must survive a crash (dedup's tcache)
         self.incarnation = 0
@@ -229,8 +246,13 @@ class MuxCtx:
         incarnation re-running on_boot gets the SAME region back, so
         state that must survive a crash (dedup's tag cache) persists
         across restarts — the tile decides whether to re-init it or
-        rejoin it via `ctx.incarnation`."""
+        rejoin it via `ctx.incarnation`.  In the process runtime the
+        allocation comes from the tile's own shm arena (same idempotent
+        contract; WkspArena keeps the name table in shared memory so the
+        parent and monitors resolve the region by name)."""
         key = f"{self.name}_{name}"
+        if self.arena is not None:
+            return self.arena.alloc(key, footprint)
         if self.wksp is not None:
             return self.wksp.alloc(key, footprint)
         return self._local_alloc(key, footprint)
@@ -291,6 +313,17 @@ class Tile:
     #: unblocks the peer — a deadlock.  Manual tiles must bound their
     #: internal queues via in_budget.
     manual_credits = False
+
+    #: False = this tile stays a THREAD in the parent even under the
+    #: process runtime (Topology(runtime="process")).  Observer tiles
+    #: that close over parent-side state (the metric tile's registry
+    #: callable, the rpc tile's counter lambdas) are the intended users:
+    #: they only READ shared memory, so keeping them in the parent loses
+    #: no isolation, while their closures could never ride a spawn
+    #: pickle.  Pipeline tiles must pickle: their constructors hold no
+    #: thread, lock, ctypes handle or CUDA tensor (on_boot makes those,
+    #: in the child).
+    proc_safe = True
 
     def wksp_footprint(self) -> int:
         """Bytes of shared-workspace state this tile allocates in on_boot
@@ -545,6 +578,11 @@ def run_loop(
     m = ctx.metrics
     cnc = ctx.cnc
     tracer = ctx.tracer
+    # run-loop profiler (disco/profile.py): wall/CPU phase attribution and
+    # scheduler lag on the SAME 1-in-16 sampled iterations as the phase
+    # hists; None costs one attribute check per hook point
+    prof = ctx.profiler
+    idle_sleep_ns = int(idle_sleep_s * 1e9)
     try:
         tile.on_boot(ctx)
         stem_obj, stem_spec = (
@@ -581,8 +619,16 @@ def run_loop(
             # 1/16 sample keeps the Python-side cost negligible while
             # preserving the distribution)
             sample = (iters & 0xF) == 0
+            p_cpu0 = (
+                time.thread_time_ns() if prof is not None and sample else 0
+            )
+            p_sleep = 0  # voluntary sleep inside this iteration (ns)
             iters += 1
             if now >= next_hk:
+                # scheduler lag: how far past the INTENDED firing point the
+                # loop actually got here (GIL/scheduler contention seen
+                # from the time-based cadence's side)
+                hk_lag_ns = now - next_hk if next_hk else 0
                 next_hk = now + tempo.async_reload(lazy_ns)
                 cnc.heartbeat(now)
                 _publish_fseqs(tile, ctx)
@@ -590,6 +636,15 @@ def run_loop(
                 if cnc.signal_query() == R.CNC_HALT:
                     break
                 tile.during_housekeeping(ctx)
+                if prof is not None:
+                    if hk_lag_ns:
+                        prof.sched_lag(hk_lag_ns)
+                    if sample:
+                        prof.add_phase(
+                            "hk",
+                            time.monotonic_ns() - now,
+                            time.thread_time_ns() - p_cpu0,
+                        )
                 if sample:
                     hk_ns = time.monotonic_ns() - now
                     m.hist_sample("hk_ns", hk_ns)
@@ -609,13 +664,28 @@ def run_loop(
                     tracer.point(_SPAN_BP)
                 idle += 1
                 if idle >= idle_before_sleep:
-                    time.sleep(idle_sleep_s)
+                    if prof is None:
+                        time.sleep(idle_sleep_s)
+                    else:
+                        t0s = time.monotonic_ns()
+                        time.sleep(idle_sleep_s)
+                        p_sleep = time.monotonic_ns() - t0s
+                        prof.add_sleep(p_sleep, idle_sleep_ns)
+                if prof is not None and sample:
+                    end = time.monotonic_ns()
+                    prof.add_bp(max(end - now - p_sleep, 0))
+                    prof.add_iter(
+                        end - now, time.thread_time_ns() - p_cpu0, p_sleep
+                    )
                 continue
             ctx.credits = cr
 
             out_seq0 = [o.seq for o in ctx.outs]
             got = 0
             t_frag0 = time.monotonic_ns() if sample else 0
+            p_cpu_frag0 = (
+                time.thread_time_ns() if prof is not None and sample else 0
+            )
             absorb = tile.in_budget(ctx)
             run_py = True
             # run_ac: whether THIS iteration calls the Python after_credit.
@@ -696,14 +766,29 @@ def run_loop(
             ctx.credits = cr - got
             if sample:
                 t_credit0 = time.monotonic_ns()
+                p_cpu_credit0 = (
+                    time.thread_time_ns() if prof is not None else 0
+                )
                 if got:
                     m.hist_sample("frag_ns", t_credit0 - t_frag0)
+                    if prof is not None:
+                        prof.add_phase(
+                            "frag",
+                            t_credit0 - t_frag0,
+                            p_cpu_credit0 - p_cpu_frag0,
+                        )
                 if run_ac:
                     m.inc("py_credit")
                     tile.after_credit(ctx)
                 t_end = time.monotonic_ns()
                 m.hist_sample("credit_ns", t_end - t_credit0)
                 m.hist_sample("loop_ns", t_end - now)
+                if prof is not None:
+                    prof.add_phase(
+                        "credit",
+                        t_end - t_credit0,
+                        time.thread_time_ns() - p_cpu_credit0,
+                    )
             elif run_ac:
                 m.inc("py_credit")
                 tile.after_credit(ctx)
@@ -712,9 +797,22 @@ def run_loop(
             if got == 0 and not produced:
                 idle += 1
                 if idle >= idle_before_sleep:
-                    time.sleep(idle_sleep_s)
+                    if prof is None:
+                        time.sleep(idle_sleep_s)
+                    else:
+                        t0s = time.monotonic_ns()
+                        time.sleep(idle_sleep_s)
+                        slept = time.monotonic_ns() - t0s
+                        p_sleep += slept
+                        prof.add_sleep(slept, idle_sleep_ns)
             else:
                 idle = 0
+            if prof is not None and sample:
+                prof.add_iter(
+                    time.monotonic_ns() - now,
+                    time.thread_time_ns() - p_cpu0,
+                    p_sleep,
+                )
     except Exception:
         cnc.signal(R.CNC_FAIL)
         raise

@@ -1,19 +1,43 @@
-"""Declarative topology: links + tiles + workspace layout + a thread runner.
+"""Declarative topology: links + tiles + workspace layout + a runner.
 
-The thread runtime of firedancer_tpu/disco/topo.py (`Topology`,
-`device_assignments`): one thread per tile in one interpreter, the shape
-the reference's own tests use (src/disco/dedup/test_dedup.c:654-660),
-with either data-plane inner loop (`stem="python"`, the default, or
-`"native"`: the tiles that register a native handler run the GIL-released
-fdt_stem burst loop).  The mode is an explicit argument only: the JAX
-package's FDT_STEM environment switch is not carried.  A named topology
-publishes its workspace directory and a monitor manifest once every tile
-is in RUN (`export_manifest`), so app/monitor.py and the metric tile can
-attach to it by name.
-Not ported yet, and refused rather than ignored: the process runtime
-(`runtime="process"`), the supervisor, elastic shards,
-the version handshake and hot upgrade, the flight recorder, the run-loop
-profiler and asserted SLOs.
+The thread and process runtimes of firedancer_tpu/disco/topo.py
+(`Topology`, `device_assignments`), over the same /dev/shm-backed objects:
+
+  * runtime="thread" (the default): one thread per tile in one
+    interpreter — the shape the reference's own tests use
+    (src/disco/dedup/test_dedup.c:654-660).
+  * runtime="process": one OS process per tile.  The parent builds the
+    named workspace (an anonymous topology gets a name) and publishes a
+    boot manifest; each child is SPAWNED (never forked: the parent may
+    hold a CUDA context), re-attaches the workspace, proves its ring-ABI
+    digest against the `shared_handshake` word (disco/handshake.py)
+    before it binds any ring, rebinds its mcache/dcache/fseq/cnc views
+    and metrics/trace/profile regions by manifest name, allocates its
+    state from its own shm arena (tango.rings.WkspArena) and enters the
+    same disco/mux.py run loop.  The control plane (boot acks and the
+    booted/pid words of a per-tile `pstat` region) lives in shared
+    memory; a child that crashes writes its traceback to an err sidecar
+    beside the workspace, which close() removes.  Observer tiles that
+    close over parent state (metric, rpc) declare proc_safe=False and
+    stay threads in the parent.  Each child makes its own device state
+    (a verify child its own CUDA context) in on_boot.
+
+Either runtime runs either data-plane inner loop (`stem="python"`, the
+default, or `"native"`: the tiles that register a native handler run the
+GIL-released fdt_stem burst loop).  The runtime and the stem mode are
+explicit arguments only: the JAX package's FDT_RUNTIME, FDT_STEM and
+FDT_SPAWN environment switches are not carried.  A named topology
+publishes its workspace directory and a monitor manifest
+(`export_manifest`), so app/monitor.py and the metric tile can attach to
+it by name; with `enable_profile()` every tile gets a run-loop profiler
+region (disco/profile.py), read through `profile_metrics()` and the
+manifest's `profile` key.
+Not ported yet, and refused rather than ignored: restarts (an
+incarnation past the first, a ring rejoin: disco/supervisor.py), fault
+injection (disco/faultinj.py), hot upgrade (disco/elastic.py), elastic
+shards, the flight recorder and asserted SLOs.  The shm dcache cursor
+word, which only a restarted producer child needs, comes with the
+supervisor.
 
 Reference model: src/disco/topo/fd_topo.h:28-230 (fd_topo_t = wksps,
 links, tiles, objs; built by fd_topob_*) and fd_topo_run.c (join
@@ -24,9 +48,12 @@ run/run.c:264-270: any tile failure halts the whole topology.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from dataclasses import dataclass, field
+
+import numpy as np
 
 from ..tango import rings as R
 from .metrics import Metrics, MetricsSchema
@@ -37,10 +64,67 @@ _LOG = logging.getLogger(__name__)
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port's topology is the thread "
-        f"runtime"
-    )
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+#: per-tile process-control shm words ("pstat" region): the control plane
+#: a child and its parent share beyond the cnc.  Single writer per word:
+#: the parent owns INCARNATION (set before each spawn), the child owns PID
+#: and BOOTED (its crash handler records whether on_boot had completed, so
+#: the parent tells a construction error from a post-RUN crash without
+#: any Python-object channel).  Word 3 (the JAX package's elastic drained
+#: epoch) stays unused until elastic shards are ported.
+PSTAT_INCARNATION, PSTAT_PID, PSTAT_BOOTED = 0, 1, 2
+#: port-only child-owned words, written as the child exits (a kernel
+#: wrapper's launch counter is per process, so a parent cannot read a
+#: child's): CUDA = whether the child made a CUDA context, then one word
+#: a kernel of DEVICE_KERNELS, its launches in the child
+PSTAT_CUDA, PSTAT_LAUNCHES = 4, 5
+#: the port's kernel wrappers' launch counters: (kernel, module under
+#: the package, LAUNCHES key or None for a plain int)
+DEVICE_KERNELS = (
+    ("verify_core", "ops.ed25519.verify_core", None),
+    ("decompress_niels", "ops.ed25519.msm", "decompress_niels"),
+    ("msm_buckets", "ops.ed25519.msm", "msm_buckets"),
+    ("pack_select", "ops.pack_select", None),
+    ("sha256_blocks", "ops.sha256", "sha256_blocks"),
+    ("poh_chain", "ops.sha256", "poh_chain"),
+)
+_PSTAT_WORDS = PSTAT_LAUNCHES + len(DEVICE_KERNELS)
+_PSTAT_BYTES = 128
+assert 8 * _PSTAT_WORDS <= _PSTAT_BYTES
+
+
+def _publish_device(pstat: np.ndarray) -> None:
+    """A child's exit: its CUDA context and its kernels' launches into
+    its pstat words.  Reads only modules the child imported."""
+    import sys
+
+    root = __name__.split(".")[0]
+    torch = sys.modules.get("torch")
+    pstat[PSTAT_CUDA] = int(torch is not None and torch.cuda.is_initialized())
+    for i, (_kernel, mod, key) in enumerate(DEVICE_KERNELS):
+        m = sys.modules.get(f"{root}.{mod}")
+        n = 0 if m is None else (m.LAUNCHES if key is None else m.LAUNCHES[key])
+        pstat[PSTAT_LAUNCHES + i] = n
+
+
+def _err_path(wksp_name: str, tile: str) -> str:
+    """Child-crash report sidecar: the process analog of TileSpec.error
+    (a traceback cannot cross the process boundary as an object).  Under
+    the port's own /dev/shm prefix (tango.rings.SHM_PREFIX), so the JAX
+    package's workspaces and leak checks never meet it."""
+    return f"{R.SHM_PREFIX}{wksp_name}.err_{tile}"
+
+
+def _read_err(wksp_name: str | None, tile: str) -> str:
+    if wksp_name is None:
+        return ""
+    try:
+        with open(_err_path(wksp_name, tile)) as f:
+            return f.read()[-4000:]
+    except OSError:
+        return ""
 
 
 def device_assignments(spec, n_tiles: int) -> list[list[int]]:
@@ -85,11 +169,14 @@ class TileSpec:
     outs: list[str]
     ctx: MuxCtx | None = None
     thread: threading.Thread | None = None
+    #: process runtime: the tile's child process (multiprocessing
+    #: handle).  None for thread tiles and proc_safe=False observers.
+    proc: object | None = None
     error: BaseException | None = None
 
 
 class Topology:
-    """Build links and tiles, then run them on threads.
+    """Build links and tiles, then run them on threads or processes.
 
     Usage:
         topo = Topology()
@@ -106,8 +193,12 @@ class Topology:
         runtime: str | None = None,
         stem: str | None = None,
     ):
-        if runtime not in (None, "thread"):
-            raise _not_ported(f"runtime={runtime!r}")
+        #: tile runtime: "thread" | "process" | None (= "thread").  Must be
+        #: settled before build(): the process runtime adds workspace
+        #: regions (per-tile arenas and pstat words).
+        self.runtime = runtime
+        self._runtime: str | None = None  # resolved at build()
+        self._resolve_runtime()
         #: data-plane inner loop: "python" | "native" | None (= "python").
         #: "native" lets tiles with a registered native handler
         #: (Tile.native_handler) run their drain→handle→publish cycle in
@@ -123,13 +214,23 @@ class Topology:
         self.wksp: R.Workspace | None = None
         # sample <= 0 means OFF (TraceConfig contract)
         self.trace = trace if trace is not None and trace.sample > 0 else None
+        #: run-loop profiling (disco/profile.py): None = off; set via
+        #: enable_profile() before build()
+        self.profile = None
+        #: a fault-injection schedule for the children (JAX's
+        #: Supervisor sets it); start() refuses one until
+        #: disco/faultinj.py is ported
+        self.faults_spec = None
+        self._handshake = None  # handshake.Handshake, bound at build
         self._loop_kw: dict = {}
         self._mcaches: dict[str, R.MCache] = {}
         self._dcaches: dict[str, R.DCache] = {}
         self._fseqs: dict[tuple[str, str], R.FSeq] = {}
         self._cncs: dict[str, R.CNC] = {}
         self._metrics: dict[str, Metrics] = {}
+        self._schemas: dict[str, MetricsSchema] = {}
         self._tracers: dict[str, Tracer] = {}
+        self._profilers: dict = {}
 
     def enable_trace(self, sample: int = 64, depth: int = 1 << 14) -> None:
         """Turn on span rings for every tile (must run before build()).
@@ -141,7 +242,13 @@ class Topology:
         )
 
     def enable_profile(self, on: bool = True) -> None:
-        raise _not_ported("the run-loop profiler")
+        """Turn on the per-tile run-loop profiler (disco/profile.py):
+        sampled wall/CPU phase attribution, GIL-wait fraction, and the
+        scheduler-lag histogram, in per-tile workspace regions.  Must run
+        before build(); off = one None check per loop hook and no region
+        allocated."""
+        assert self.wksp is None, "enable_profile before build()"
+        self.profile = True if on else None
 
     def enable_flight(self, depth: int = 64, timeline_n: int = 256) -> None:
         raise _not_ported("the flight recorder")
@@ -174,6 +281,19 @@ class Topology:
         self.tiles[name] = TileSpec(tile, ins, outs)
 
     # ---- build ----------------------------------------------------------
+
+    def _resolve_runtime(self, mode: str | None = None) -> str:
+        rt = mode or self.runtime or "thread"
+        if rt not in ("thread", "process"):
+            raise ValueError(
+                f"unknown tile runtime {rt!r} (thread|process; from "
+                f"start(mode=), build(runtime=) or Topology(runtime=))"
+            )
+        return rt
+
+    def _proc(self, ts: TileSpec) -> bool:
+        """Whether the tile runs as a child process (else a thread)."""
+        return self._runtime == "process" and ts.tile.proc_safe
 
     def _resolve_stem(self, mode: str | None = None) -> str:
         sm = mode or self.stem or "python"
@@ -215,7 +335,10 @@ class Topology:
         return shared
 
     def _footprint(self) -> int:
-        total = 4096
+        from .handshake import HANDSHAKE_FOOTPRINT
+
+        # version-handshake word region (every topology has one)
+        total = 4096 + HANDSHAKE_FOOTPRINT + 256
         for fp in self._shared_regions().values():
             total += fp + 256
         for ls in self.links.values():
@@ -226,20 +349,43 @@ class Topology:
         for ts in self.tiles.values():
             total += R.CNC.footprint() + 128
             total += Metrics.footprint(self._tile_schema(ts)) + 256
-            total += ts.tile.wksp_footprint() + 256
+            if self._proc(ts):
+                # a child allocates its tile state from its arena (and
+                # its pstat words), not from the workspace
+                total += R.WkspArena.footprint(ts.tile.wksp_footprint()) + 256
+                total += _PSTAT_BYTES + 128
+            else:
+                total += ts.tile.wksp_footprint() + 256
             if self.trace is not None:
                 total += SpanRing.footprint(self.trace.depth) + 256
+            if self.profile is not None:
+                from .profile import PROFILE_SCHEMA
+
+                total += Metrics.footprint(PROFILE_SCHEMA) + 256
         return total
 
     def build(self, runtime: str | None = None) -> None:
         assert self.wksp is None, "already built"
-        if runtime not in (None, "thread"):
-            raise _not_ported(f"runtime={runtime!r}")
+        self._runtime = self._resolve_runtime(runtime)
+        if self._runtime == "process" and self.name is None:
+            # children attach by name; auto-name anonymous topologies
+            self.name = f"p{os.getpid()}_{os.urandom(3).hex()}"
         self.wksp = R.Workspace(self._footprint(), name=self.name)
-        # topology-wide shared regions, once each (MuxCtx.shared resolves
-        # them by name)
+        # topology-wide shared regions, once each, before any tile boots
+        # (MuxCtx.shared resolves them by name; a process child joins
+        # them, an attached workspace never allocates)
         for nm, fp in sorted(self._shared_regions().items()):
             self.wksp.alloc(f"shared_{nm}", fp)
+        # version-handshake word (disco/handshake.py): written ONCE by the
+        # building tree with its own ring-ABI digest, read by every
+        # process child before it binds a ring
+        from .handshake import HANDSHAKE_FOOTPRINT, Handshake
+
+        self._handshake = Handshake(
+            self.wksp.alloc("shared_handshake", HANDSHAKE_FOOTPRINT),
+            join=False,
+        )
+        self._handshake.init(R.abi_digest())
         for ls in self.links.values():
             self._mcaches[ls.name] = R.MCache.create(
                 self.wksp, f"mc_{ls.name}", ls.depth
@@ -259,6 +405,7 @@ class Topology:
         for name, ts in self.tiles.items():
             self._cncs[name] = R.CNC.create(self.wksp, f"cnc_{name}")
             schema = self._tile_schema(ts)
+            self._schemas[name] = schema
             mem = self.wksp.alloc(f"metrics_{name}", Metrics.footprint(schema))
             self._metrics[name] = Metrics(mem, schema)
             if self.trace is not None:
@@ -270,6 +417,21 @@ class Topology:
                     self.trace.sample,
                 )
                 self._tracers[name] = Tracer(ring, self.trace.sample, name=name)
+            if self.profile is not None:
+                from .profile import PROFILE_SCHEMA, TileProfiler
+
+                pmem = self.wksp.alloc(
+                    f"profile_{name}", Metrics.footprint(PROFILE_SCHEMA)
+                )
+                self._profilers[name] = TileProfiler(
+                    Metrics(pmem, PROFILE_SCHEMA)
+                )
+            if self._proc(ts):
+                self.wksp.alloc(f"pstat_{name}", _PSTAT_BYTES, align=64)
+                self.wksp.alloc(
+                    f"arena_{name}",
+                    R.WkspArena.footprint(ts.tile.wksp_footprint()),
+                )
         for name, ts in self.tiles.items():
             tracer = self._tracers.get(name)
             ins = [
@@ -306,6 +468,7 @@ class Topology:
                 wksp=self.wksp,
             )
             ts.ctx.tracer = tracer
+            ts.ctx.profiler = self._profilers.get(name)
 
     # ---- run ------------------------------------------------------------
 
@@ -322,52 +485,210 @@ class Topology:
         mode: str | None = None,
         **loop_kw,
     ) -> None:
-        """Spawn one thread per tile and wait for every tile to reach RUN.
-        A tile that fails during on_boot (bad config, no card) halts the
-        topology and its error is raised here.  loop_kw goes to run_loop
-        (batch_max, lazy_ns, ...); its `stem` (python|native) overrides
-        Topology(stem=)."""
-        if mode not in (None, "thread"):
-            raise _not_ported(f"mode={mode!r}")
+        """Start every tile (a thread each, or under the process runtime a
+        child process each, proc_safe=False tiles staying threads) and
+        wait for every tile to reach RUN.  A tile that fails during
+        on_boot (bad config, no card, a refused handshake) halts the
+        topology and its error is raised here.  mode: the runtime
+        (overrides Topology(runtime=); must match a topology already
+        built).  loop_kw goes to run_loop (batch_max, lazy_ns, ...); its
+        `stem` (python|native) overrides Topology(stem=)."""
+        runtime = self._resolve_runtime(mode)
         if self.wksp is None:
-            self.build()
+            self.build(runtime=runtime)
+        elif runtime != self._runtime:
+            raise RuntimeError(
+                f"topology built for runtime {self._runtime!r}; cannot "
+                f"start as {runtime!r} (the process runtime changes the "
+                f"workspace layout — set it before build())"
+            )
+        if self.faults_spec is not None:
+            raise _not_ported("fault injection (disco/faultinj.py)")
         self._loop_kw = dict(loop_kw)
-        # the stem mode rides the loop kwargs, so every tile runs the
-        # same inner loop
+        # the stem mode rides the loop kwargs: the same dict reaches
+        # thread tiles and process children (spawn args), so every tile
+        # runs the same inner loop
         self._loop_kw["stem"] = self._resolve_stem(loop_kw.get("stem"))
-        for ts in self.tiles.values():
+        if runtime == "process":
+            # publish BEFORE spawn: children rebuild their endpoints from
+            # the directory's boot manifest
+            self.export_manifest()
+            self._spawn_children()
+        else:
+            for name in self.tiles:
+                self._spawn_tile(name)
+        deadline = time.monotonic() + boot_timeout_s
+        for name in self.tiles:
+            self._wait_boot(name, deadline)
+        # publish AFTER boot: on_boot workspace allocations of thread
+        # tiles (tcaches etc.) must appear in the directory the monitor
+        # attaches to (a child's arena name table is in shm already)
+        self.export_manifest()
+
+    def _wait_boot(self, name: str, deadline: float) -> None:
+        """Wait for one tile to leave BOOT; a death or failure during boot
+        halts the topology and raises, naming the tile (with a child's
+        err sidecar), and so does the deadline."""
+        ts = self.tiles[name]
+        cnc = self._cncs[name]
+        while cnc.signal_query() == R.CNC_BOOT:
+            if ts.error is not None:
+                self.halt()
+                raise ts.error
+            p = ts.proc
+            if p is not None and not p.is_alive():
+                # died before reaching RUN or FAIL (a spawn or import
+                # crash, a refused handshake): the sidecar carries the
+                # traceback
+                err = _read_err(self.name, name)
+                rc = p.exitcode  # before halt() reaps and closes it
+                self.halt()
+                raise RuntimeError(
+                    f"tile {name!r} process died during boot (exitcode "
+                    f"{rc})" + (f":\n{err}" if err else "")
+                )
+            if time.monotonic() > deadline:
+                self.halt()
+                raise TimeoutError(f"tile {name!r} stuck in BOOT")
+            time.sleep(1e-3)
+        if cnc.signal_query() != R.CNC_FAIL:
+            return
+        # run_loop signals FAIL before the exception reaches the thread's
+        # or the child's handler, so give the error a moment to land
+        if ts.proc is not None:
+            ts.proc.join(timeout=10.0)
+            booted = bool(self._pstat(name)[PSTAT_BOOTED])
+        else:
+            ts.thread.join(timeout=10.0)
+            booted = ts.ctx.booted
+        if booted:
+            # reached RUN and then crashed: fail-stop via poll_failure
+            return
+        # died DURING on_boot: a construction error, raised now
+        err = _read_err(self.name, name)
+        self.halt()
+        if ts.error is not None:
+            raise ts.error
+        raise RuntimeError(
+            f"tile {name!r} failed during boot" + (f":\n{err}" if err else "")
+        )
+
+    # ---- process runtime -------------------------------------------------
+
+    def _pstat(self, name: str) -> np.ndarray:
+        return self.wksp.view(f"pstat_{name}")[: 8 * _PSTAT_WORDS].view(np.uint64)
+
+    def tile_pid(self, name: str) -> int | None:
+        """The tile's child pid (process runtime; None for threads)."""
+        ts = self.tiles[name]
+        if ts.proc is None:
+            return None
+        return int(self._pstat(name)[PSTAT_PID]) or ts.proc.pid
+
+    def tile_device(self, name: str) -> dict | None:
+        """A child's device use, published as it exited (read it after
+        halt): `cuda`, whether it made a CUDA context, and `launches`,
+        each DEVICE_KERNELS kernel's launches in it, its warm-ups
+        included.  None for a thread tile, whose launches count in this
+        process."""
+        if not self._proc(self.tiles[name]):
+            return None
+        w = self._pstat(name)
+        return {"cuda": bool(w[PSTAT_CUDA]),
+                "launches": {k: int(w[PSTAT_LAUNCHES + i])
+                             for i, (k, _m, _key) in enumerate(DEVICE_KERNELS)}}
+
+    def _spawn_tile(self, name: str, replay: int = 0,
+                    rejoin: bool | None = None) -> None:
+        """Start one tile in the resolved runtime: a child process, or a
+        thread for the thread runtime and proc_safe=False observers.  A
+        re-incarnation and a ring rejoin (`replay`, `rejoin`) belong to
+        restarts, which are not ported."""
+        ts = self.tiles[name]
+        if rejoin or replay or ts.ctx.incarnation > 0:
+            raise _not_ported("restarting a tile (disco/supervisor.py)")
+        ts.error = None
+        if not self._proc(ts):
             t = threading.Thread(
                 target=self._tile_main,
                 args=(ts, self._loop_kw),
-                name=f"tile:{ts.tile.name}",
+                name=f"tile:{name}",
                 daemon=True,
             )
             ts.thread = t
             t.start()
-        # wait for every tile to reach RUN (or fail during boot)
-        deadline = time.monotonic() + boot_timeout_s
-        for name, ts in self.tiles.items():
-            while self._cncs[name].signal_query() == R.CNC_BOOT:
-                if ts.error is not None:
-                    self.halt()
-                    raise ts.error
-                if time.monotonic() > deadline:
-                    self.halt()
-                    raise TimeoutError(f"tile {name!r} stuck in BOOT")
-                time.sleep(1e-3)
-            if self._cncs[name].signal_query() == R.CNC_FAIL:
-                # run_loop signals FAIL before the exception reaches
-                # _tile_main, so give the error a moment to land
-                ts.thread.join(timeout=10.0)
-                if not ts.ctx.booted:
-                    # died DURING on_boot: a construction error, raised now.
-                    # A tile that reached RUN and then crashed stays
-                    # fail-stop via poll_failure.
-                    self.halt()
-                    if ts.error is not None:
-                        raise ts.error
-                    raise RuntimeError(f"tile {name!r} failed during boot")
-        self.export_manifest()
+            return
+        import multiprocessing as mp
+
+        # fresh incarnation contract: the parent owns the incarnation
+        # word, the child the pid and booted words — clear the child's
+        # words and any stale crash report before it starts
+        pstat = self._pstat(name)
+        pstat[PSTAT_INCARNATION] = np.uint64(ts.ctx.incarnation)
+        pstat[PSTAT_PID] = 0
+        pstat[PSTAT_BOOTED] = 0
+        pstat[PSTAT_CUDA:] = 0
+        try:
+            os.unlink(_err_path(self.name, name))
+        except FileNotFoundError:
+            pass
+        # spawn, never fork: a pristine interpreter per tile, with no
+        # inherited GIL state, locks or CUDA context; the child rebuilds
+        # everything from the manifest and the pickled tile
+        p = mp.get_context("spawn").Process(
+            target=_tile_process_main,
+            args=(self.name, name, ts.tile, self._loop_kw),
+            name=f"tile:{name}",
+            daemon=True,
+        )
+        ts.proc = p
+        p.start()
+
+    def _spawn_children(self) -> None:
+        """Start every tile of a process topology at once, one thread per
+        tile: a spawn writes the pickled tile into the child's pipe and
+        blocks until the child has read it all, which for a large tile
+        (pack's pools) waits out the child's imports; started in turn,
+        each such child would hold back every tile after it.  A failed
+        start halts what started and raises."""
+        errors: list[BaseException] = []
+
+        def spawn(name: str) -> None:
+            try:
+                self._spawn_tile(name)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        starters = [threading.Thread(target=spawn, args=(n,), name=f"spawn:{n}")
+                    for n in self.tiles]
+        for t in starters:
+            t.start()
+        for t in starters:
+            t.join()
+        if errors:
+            self.halt()
+            raise errors[0]
+
+    def _reap(self, ts: TileSpec, timeout_s: float) -> None:
+        """Join a child with bounded escalation: HALT should have ended
+        it; a survivor gets SIGTERM then SIGKILL, and the handle is
+        always closed so no zombie outlives the topology (a child that
+        died mid-boot is reaped the same way)."""
+        p = ts.proc
+        if p is None:
+            return
+        p.join(timeout=timeout_s)
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=5.0)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=5.0)
+        try:
+            p.close()
+        except ValueError:
+            pass  # still alive after SIGKILL (D-state): leaked
+        ts.proc = None
 
     def poll_failure(self) -> None:
         """Fail-stop check: if any tile died, halt everything and re-raise."""
@@ -375,16 +696,45 @@ class Topology:
             if ts.error is not None:
                 self.halt()
                 raise RuntimeError(f"tile {name!r} failed") from ts.error
+            p = ts.proc
+            if p is None:
+                continue
+            sig = self._cncs[name].signal_query()
+            if sig == R.CNC_FAIL or (sig == R.CNC_RUN and not p.is_alive()):
+                err = _read_err(self.name, name)
+                self.halt()
+                raise RuntimeError(
+                    f"tile {name!r} process failed"
+                    + (f":\n{err}" if err else "")
+                )
+
+    def handshake(self):
+        """The workspace's version-handshake view (disco/handshake.py),
+        bound at build()."""
+        assert self._handshake is not None, "build() first"
+        return self._handshake
+
+    def approve_version(self, digest: int) -> None:
+        """Admit a foreign ABI digest into the workspace compat table —
+        the operator's out-of-band ring-compatibility proof.  Children
+        carrying it pass the handshake thereafter."""
+        self.handshake().approve(digest)
+
+    def hot_upgrade(self, name: str, **kw) -> None:
+        raise _not_ported("hot upgrade (disco/elastic.py)")
 
     def halt(self, timeout_s: float = 30.0) -> None:
         """Halt upstream-first so in-flight frags drain before consumers
-        stop."""
+        stop.  Children are reaped with bounded SIGTERM→SIGKILL
+        escalation (a child that died mid-boot is reaped the same way)."""
         for name in self._topo_order():
             cnc = self._cncs.get(name)
             if cnc is None:
                 continue
             cnc.signal(R.CNC_HALT)
             ts = self.tiles[name]
+            if ts.proc is not None:
+                self._reap(ts, timeout_s)
             if ts.thread is not None:
                 ts.thread.join(timeout=timeout_s)
 
@@ -415,13 +765,36 @@ class Topology:
         """Snapshot of every tile's Metrics (the metric tile's source)."""
         return dict(self._metrics)
 
+    def profile_metrics(self) -> dict[str, Metrics]:
+        """Per-tile profiler regions (disco/profile.py readers), empty
+        when profiling is off."""
+        return {name: p.m for name, p in self._profilers.items()}
+
+    def tile_alloc_view(self, tile: str, name: str) -> np.ndarray:
+        """Resolve a tile's ctx.alloc region by name from the PARENT: the
+        tile's shm arena under the process runtime, the workspace alloc
+        table under the thread runtime, the ctx-local buffer of an
+        anonymous thread topology."""
+        key = f"{tile}_{name}"
+        if self._proc(self.tiles[tile]):
+            # join=True: a read-only attach never initializes the header
+            # (the owning child's job; racing it would corrupt the table)
+            return R.WkspArena(
+                self.wksp.view(f"arena_{tile}"), join=True
+            ).view(key)
+        if self.wksp is not None and key in self.wksp._allocs:
+            return self.wksp.view(key)
+        return self.tiles[tile].ctx._local_allocs[key]
+
     def export_manifest(self) -> None:
         """Publish the workspace directory + a monitor manifest (tile
         schemas, metrics/cnc alloc names, link fseq names, the resolved
-        stem mode) so a separate process can attach and observe
-        (app/monitor.py).  No-op for anonymous (in-process) workspaces.
-        The port has no profile, flight, SLO or elastic regions and no
-        trace reader, so the manifest carries none of those keys."""
+        stem mode, the profile regions when profiling is on, and under
+        the process runtime the children's boot manifest) so a separate
+        process can attach (app/monitor.py, a tile child).  No-op for
+        anonymous (in-process) workspaces.  The port has no flight, SLO
+        or elastic regions and no trace reader, so the manifest carries
+        none of those keys."""
         if self.wksp is None or self.wksp.name is None:
             return
         tiles = {}
@@ -449,12 +822,229 @@ class Topology:
             }
             for ls in self.links.values()
         }
-        self.wksp.publish_directory({
+        extra = {
             "tiles": tiles, "links": links,
             "stem": self._loop_kw.get("stem") or self._resolve_stem(),
-        })
+        }
+        if self.profile is not None:
+            extra["profile"] = {
+                "tiles": {name: f"profile_{name}" for name in self.tiles},
+            }
+        if self._runtime == "process":
+            extra["boot"] = self._boot_manifest()
+        self.wksp.publish_directory(extra)
+
+    def _boot_manifest(self) -> dict:
+        """The child-side reconstruction contract: everything a spawned
+        tile process needs to rebind its endpoints by name — link
+        geometry (depth/mtu/ids, mcache/dcache/fseq alloc names),
+        per-tile cnc/metrics/arena/pstat names, the flattened metrics
+        schemas (including wide-hist widths — layout-affecting), the
+        trace and profile regions and the handshake word."""
+        link_ids = {ln: i for i, ln in enumerate(self.links)}
+        links = {}
+        for ls in self.links.values():
+            links[ls.name] = {
+                "id": link_ids[ls.name],
+                "depth": ls.depth,
+                "mtu": ls.mtu,
+                "producer": ls.producer,
+                "mcache": f"mc_{ls.name}",
+                "dcache": f"dc_{ls.name}" if ls.mtu else None,
+                "consumers": [
+                    [cons, rel, f"fs_{ls.name}_{cons}"]
+                    for cons, rel in ls.consumers
+                ],
+            }
+        tiles = {}
+        for name, ts in self.tiles.items():
+            schema = self._schemas[name]
+            proc = ts.tile.proc_safe  # observers have no child regions
+            tiles[name] = {
+                "ins": [[ln, rel] for ln, rel in ts.ins],
+                "outs": list(ts.outs),
+                "cnc": f"cnc_{name}",
+                "metrics": f"metrics_{name}",
+                "schema": {
+                    "counters": list(schema.counters),
+                    "hists": list(schema.hists),
+                    "wide_hists": list(schema.wide_hists),
+                },
+                "arena": f"arena_{name}" if proc else None,
+                "pstat": f"pstat_{name}" if proc else None,
+                "trace": f"trace_{name}" if self.trace is not None else None,
+                "profile": (
+                    f"profile_{name}" if self.profile is not None else None
+                ),
+            }
+        return {
+            "runtime": "process",
+            "spawn": "spawn",
+            "handshake": "shared_handshake",
+            "links": links,
+            "tiles": tiles,
+            "trace": (
+                {"sample": self.trace.sample, "depth": self.trace.depth}
+                if self.trace is not None
+                else None
+            ),
+        }
 
     def close(self) -> None:
+        """Halt whatever still runs (the tiles of a run that raised before
+        its halt: a daemon thread would spin on, a child be left to the
+        SIGTERM below), reap every child still there (a failed start, a
+        child dead mid-boot), then remove the workspace file, its
+        directory and every err sidecar."""
+        if any(ts.proc is not None or (ts.thread is not None and ts.thread.is_alive())
+               for ts in self.tiles.values()):
+            self.halt(timeout_s=5.0)
+        for ts in self.tiles.values():
+            if ts.proc is not None:
+                self._reap(ts, timeout_s=1.0)
         if self.wksp is not None:
             self.wksp.unlink()
             self.wksp = None
+
+
+# ---------------------------------------------------------------------------
+# process-runtime child entrypoint
+#
+# Runs in a FRESH interpreter (spawn): re-attach the named workspace, prove
+# the ring-ABI digest, rebind every endpoint by boot-manifest name, rebuild
+# the MuxCtx with the tile's shm arena and profiler, and enter the SAME run
+# loop the thread runtime uses — the ring protocol itself is process-safe.
+
+
+def _tile_process_main(
+    wksp_name: str,
+    tile_name: str,
+    tile: Tile,
+    loop_kw: dict,
+) -> None:
+    import sys
+    import traceback
+
+    err_path = _err_path(wksp_name, tile_name)
+    ctx = None
+    cnc = None
+    pstat = None
+    try:
+        ws, extra = R.Workspace.attach(wksp_name)
+        boot = extra["boot"]
+        links = boot["links"]
+        t = boot["tiles"][tile_name]
+        pstat = ws.view(t["pstat"])[: 8 * _PSTAT_WORDS].view(np.uint64)
+        pstat[PSTAT_PID] = os.getpid()
+        # version handshake (disco/handshake.py): prove THIS
+        # interpreter's ring-ABI digest against the workspace word BEFORE
+        # binding a single ring — a mixed-version join is refused right
+        # here (HandshakeRefused lands in the err sidecar with both
+        # digests; exit code 2, a construction failure)
+        from .handshake import check_join
+
+        check_join(ws.view(boot["handshake"]), R.abi_digest(), tile=tile_name)
+        mcaches: dict[str, R.MCache] = {}
+        dcaches: dict[str, R.DCache] = {}
+
+        def _mc(ln: str) -> R.MCache:
+            if ln not in mcaches:
+                mcaches[ln] = R.MCache(
+                    ws.view(links[ln]["mcache"]), links[ln]["depth"],
+                    join=True,
+                )
+            return mcaches[ln]
+
+        def _dc(ln: str) -> R.DCache | None:
+            spec = links[ln]
+            if spec["dcache"] is None:
+                return None
+            if ln not in dcaches:
+                dcaches[ln] = R.DCache(
+                    ws.view(spec["dcache"]), spec["mtu"], spec["depth"]
+                )
+            return dcaches[ln]
+
+        cnc = R.CNC(ws.view(t["cnc"]), join=True)
+        sch = t["schema"]
+        schema = MetricsSchema(
+            counters=tuple(sch["counters"]),
+            hists=tuple(sch["hists"]),
+            wide_hists=tuple(sch["wide_hists"]),
+        )
+        metrics = Metrics(ws.view(t["metrics"]), schema)
+        tracer = None
+        if boot["trace"] is not None and t["trace"] is not None:
+            ring = SpanRing(ws.view(t["trace"]), join=True)
+            tracer = Tracer(ring, boot["trace"]["sample"], name=tile_name)
+        profiler = None
+        if t["profile"] is not None:
+            from .profile import PROFILE_SCHEMA, TileProfiler
+
+            profiler = TileProfiler(
+                Metrics(ws.view(t["profile"]), PROFILE_SCHEMA)
+            )
+        ins = [
+            InLink(
+                ln,
+                _mc(ln),
+                _dc(ln),
+                R.FSeq(
+                    ws.view(next(
+                        c[2] for c in links[ln]["consumers"]
+                        if c[0] == tile_name
+                    )),
+                    join=True,
+                ),
+                bool(rel),
+                link_id=links[ln]["id"],
+                h_qwait=f"qwait_us_{ln}",
+                h_svc=f"svc_us_{ln}",
+                h_e2e=f"e2e_us_{ln}",
+            )
+            for ln, rel in t["ins"]
+        ]
+        outs = [
+            OutLink(
+                ln,
+                _mc(ln),
+                _dc(ln),
+                [
+                    R.FSeq(ws.view(c[2]), join=True)
+                    for c in links[ln]["consumers"]
+                    if c[1]
+                ],
+                link_id=links[ln]["id"],
+                tracer=tracer,
+            )
+            for ln in t["outs"]
+        ]
+        ctx = MuxCtx(tile_name, cnc, ins, outs, metrics, wksp=ws)
+        ctx.tracer = tracer
+        ctx.profiler = profiler
+        ctx.arena = R.WkspArena(ws.view(t["arena"]))
+        run_loop(tile, ctx, **loop_kw)
+    except BaseException:  # noqa: BLE001 — fail-stop, reported via shm
+        try:
+            with open(err_path, "w") as f:
+                f.write(traceback.format_exc())
+        except OSError:
+            pass
+        booted = bool(ctx is not None and ctx.booted)
+        if pstat is not None:
+            pstat[PSTAT_BOOTED] = 1 if booted else 0
+            try:
+                _publish_device(pstat)
+            except Exception:  # noqa: BLE001 — the crash is reported already
+                pass
+        # run_loop signals FAIL for its own exceptions; cover crashes
+        # before or outside it so the parent's cnc wait always resolves
+        if cnc is not None and cnc.signal_query() != R.CNC_FAIL:
+            cnc.signal(R.CNC_FAIL)
+        _LOG.error("tile %s process failed: see %s", tile_name, err_path)
+        # the exit code mirrors the boot/run classification
+        sys.exit(2 if not booted else 1)
+    else:
+        if pstat is not None:
+            _publish_device(pstat)
+            pstat[PSTAT_BOOTED] = 1

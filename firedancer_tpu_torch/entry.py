@@ -6,14 +6,15 @@ entry()             -> (fn, example_args): the single-card forward step of
 dryrun_multichip(n) -> the step over a dp x mp mesh of n ranks and the
                        verify pool (parallel/dryrun.py): NCCL ranks on n
                        cards, or with device="cpu" gloo ranks on the CPU.
-ingress(...)        -> the ingress tile pipeline over real rings in the
-                       thread runtime: synth -> verify (on the card) ->
-                       dedup -> sink, run to completion; the tiles'
-                       counters, the sink's survivors and the latencies.
-                       front="wire" puts net -> quic (legacy UDP and QUIC
-                       over real loopback sockets) in the synth's place.
-                       stem="native" runs dedup (and net) on the native
-                       stem.
+ingress(...)        -> the ingress tile pipeline over real rings: synth ->
+                       verify (on the card) -> dedup -> sink, run to
+                       completion; the tiles' counters, the sink's
+                       survivors and the latencies.  front="wire" puts net
+                       -> quic (legacy UDP and QUIC over real loopback
+                       sockets) in the synth's place.  stem="native" runs
+                       dedup (and net) on the native stem.
+                       runtime="process" runs each tile in its own process,
+                       profile=True adds each tile's run-loop profile.
 leader(...)         -> the leader pipeline: synth -> verify -> dedup ->
                        pack (its select on the card) -> bank x n -> poh ->
                        shred <-> sign -> store, with a recording sink
@@ -101,7 +102,8 @@ def _front(topo, pool, total, repeat, max_lanes, device, out_link, *,
     pool is signed for a run that cannot start.
 
     front="synth": synth -> verify (every ring holds the run; the synth
-    gets `total` frags, or release()'s budget read again at every poll).
+    gets `total` frags through its release word once begun, or
+    release()'s budget read again at every poll).
     front="wire": net -> quic(via_net) -> verify, with quic's responses on
     quic_net back to net (firedancer_tpu/app/config.py:307-319), bound to
     127.0.0.1 ephemeral ports; `traffic` (a tiles/bench.WireTraffic) sends
@@ -122,19 +124,23 @@ def _front(topo, pool, total, repeat, max_lanes, device, out_link, *,
     if front == "synth":
         total = 2 * len(rows) if total is None else total
         depth = _depth(total)
-        # the synth publishes nothing until every tile is in RUN (its total
-        # is set by begin), so the boot (the verify tile's warm-up) is not
-        # timed
+        # the synth publishes nothing until every tile is in RUN (begin
+        # writes its release word), so the boot (the verify tile's
+        # warm-up) is not timed; the word reaches a synth child too
         synth = SynthTile(rows, szs, total=0, repeat=repeat)
         topo.link("synth_verify", depth=depth, mtu=wire.LINK_MTU)
         topo.tile(synth, outs=["synth_verify"])
 
+        def set_release(n: int) -> None:
+            word = topo.wksp.view(f"shared_{synth.release_region}")
+            word.view(np.uint64)[0] = n
+
         def begin():
-            synth.total = total if release is None else release()
+            set_release(total if release is None else release())
 
         def tick():
             if release is not None:
-                synth.total = release()
+                set_release(release())
 
         fr = _Front(("synth",), "synth_verify", synth.tags, total, begin, tick)
     else:
@@ -267,9 +273,11 @@ def _stem_report(counters) -> dict:
 def _run(topo, fr, idle_sleep_s, max_lanes, done, tiles, what):
     """Start `topo`, begin the front once every tile is in RUN, wait for
     done() (ticking the front at every 1 ms poll), halt; -> (the begin's
-    perf_counter, seconds from the begin to done, every tile's counters)."""
+    perf_counter, seconds from the begin to done, every tile's counters,
+    the seconds start() took to bring every tile to RUN)."""
     import time
 
+    t_boot = time.perf_counter()
     topo.start(batch_max=max_lanes, idle_sleep_s=idle_sleep_s)
     t0 = time.perf_counter()
     fr.begin()
@@ -288,7 +296,7 @@ def _run(topo, fr, idle_sleep_s, max_lanes, done, tiles, what):
             for c in topo.metrics(n).schema.counters}
         for n in tiles
     }
-    return t0, dt, counters
+    return t0, dt, counters, t0 - t_boot
 
 
 def _percentiles(m, hist: str, key: str) -> dict:
@@ -315,8 +323,10 @@ def ingress(
     front: str = "synth",
     traffic=None,
     identity_secret: bytes | None = None,
+    runtime: str | None = None,
+    profile: bool = False,
 ) -> dict:
-    """Build synth -> verify -> dedup -> sink in the thread runtime, stream
+    """Build synth -> verify -> dedup -> sink, stream
     `total` frags (default: two passes over the pool), each pool entry
     `repeat` times back to back, and run until every frag has left the
     pipeline; -> a report (see below).
@@ -341,34 +351,58 @@ def ingress(
     CUDA device" on a host without one; "cpu" runs the plain versions
     (tests); "off" the strict host path.  stem: the run loop's inner loop
     for every tile, "python" (None) or "native" (disco/topo.Topology).
+    runtime: "thread" (None) or "process", one OS process per tile (the
+    synth front only: a wire front's sockets would be bound in the
+    children, and this harness reads them from its own tile copies);
+    the sink then logs its survivors in its shm sig log
+    (tiles/sink.py shm_log), read back through the topology.  profile:
+    enable_profile() on the topology.
 
     The report: `counters` (every tile's counters), `pool` (rows, szs,
     good, tags), the sink's `survivors` (tags) with their `payloads` and
-    `sizes`, `seconds` (from every tile in RUN until the last frag left),
-    `txns_per_s` (total / seconds), the e2e p50/p99 at the sink and the
-    verify hop's p99 (µs, from the run loop's link hists), the verify
-    tile's `landed_stamps` (pool_seq, domain, lanes, dispatch and land
-    stamps in µs), and `stem`: the mode and every tile's stem_engaged,
-    stem_frags, py_frags and py_credit.  A wire run adds `wire`: the bound
-    `addrs`, the datagrams sent (legacy, quic), the blaster's window, the
+    `sizes` (None under the process runtime: the shm log holds sigs only),
+    `seconds` (from every tile in RUN until the last frag left),
+    `boot_seconds` (start() bringing every tile to RUN), `txns_per_s`
+    (total / seconds), the e2e p50/p99 at the sink and the verify hop's
+    p99 (µs, from the run loop's link hists), the verify tile's
+    `landed_stamps` (pool_seq, domain, lanes, dispatch and land stamps in
+    µs; None under the process runtime, where they stay in the verify
+    child, as `landed_stamps_note` says), `runtime`, under the process
+    runtime `children` (each child's Topology.tile_device: its CUDA
+    context and its kernels' launches), `stem`: the mode and
+    every tile's stem_engaged, stem_frags, py_frags and py_credit, and
+    with profile `profile`: disco/profile.aggregate of every tile's
+    region (gil_wait_frac, sched_lag_p99_us, the per-tile rows), the
+    render_rows table and `cores`, the CPUs this process may run on.  A
+    wire run adds `wire`: the bound `addrs`, the datagrams sent (legacy,
+    quic), the blaster's window, the
     granted SO_RCVBUF and the truesize it was divided by, each QUIC
     client's report and handshake ms, QUIC txns/s (client side: first txn
     sent to the last packet acked), net's rx_dgrams and oversize_drops,
     quic's rx_txns_udp, rx_txns_quic and conns_opened, and legacy txns/s
     (from the begin to quic holding every legacy txn)."""
+    import os
+
+    from .disco import profile as PF
     from .disco.topo import Topology
     from .tiles import wire
-    from .tiles.sink import SinkTile
+    from .tiles.sink import SIGLOG_ALLOC, SinkTile, read_siglog
 
-    topo = Topology(stem=stem)
+    topo = Topology(stem=stem, runtime=runtime)
+    proc = runtime == "process"
+    if proc and front != "synth":
+        raise ValueError(f"runtime='process' takes the synth front, not {front!r}")
+    if profile:
+        topo.enable_profile()
     fr, verify, pool = _front(topo, pool, total, repeat, max_lanes, device,
                               "dedup_sink", front=front, traffic=traffic,
                               identity_secret=identity_secret)
     total = fr.total
     rows, szs, good = pool
-    sink = SinkTile(record=True)
+    sink = SinkTile(record=not proc, shm_log=total if proc else 0)
     topo.tile(sink, ins=[("dedup_sink", True)])
     marks: dict = {}
+    prof = None
     try:
         topo.build()
         md, ms = topo.metrics("dedup"), topo.metrics("sink")
@@ -379,27 +413,44 @@ def ingress(
             return (_front_done(topo, total)
                     and ms.counter("in_frags") >= md.counter("out_frags"))
 
-        t0, dt, counters = _run(topo, fr, idle_sleep_s, max_lanes, done,
-                                fr.tiles + INGRESS_TILES[1:], "ingress")
+        t0, dt, counters, boot_s = _run(topo, fr, idle_sleep_s, max_lanes, done,
+                                        fr.tiles + INGRESS_TILES[1:], "ingress")
         lat = _percentiles(ms, "e2e_us_dedup_sink", "e2e")
         hv = _percentiles(topo.metrics("verify"), f"svc_us_{fr.in_link}", "verify_hop")
         lat.update({k: v for k, v in hv.items() if k.endswith("p99_us")})
+        if profile:
+            pm = topo.profile_metrics()
+            prof = {**PF.aggregate(pm), "rows": PF.render_rows(pm),
+                    "cores": len(os.sched_getaffinity(0))}
+        if proc:
+            # the sink child has halted: its shm log is final; so are the
+            # device words each child published as it exited
+            survivors = read_siglog(topo.tile_alloc_view("sink", SIGLOG_ALLOC))
+            children = {n: topo.tile_device(n) for n in topo.tiles}
     finally:
         topo.close()
         if front == "wire":
             fr.traffic.close()
-    # the sink has halted: its records are final
-    survivors = sink.all_sigs()
-    payloads = (np.concatenate(sink.payloads) if sink.payloads
-                else np.zeros((0, wire.LINK_MTU), np.uint8))
-    sizes = (np.concatenate(sink.sizes) if sink.sizes
-             else np.zeros(0, np.uint16))
+    payloads = sizes = None
+    if not proc:
+        # the sink has halted: its records are final
+        survivors = sink.all_sigs()
+        payloads = (np.concatenate(sink.payloads) if sink.payloads
+                    else np.zeros((0, wire.LINK_MTU), np.uint8))
+        sizes = (np.concatenate(sink.sizes) if sink.sizes
+                 else np.zeros(0, np.uint16))
     return {
         "counters": counters,
         "pool": {"rows": rows, "szs": szs, "good": good, "tags": fr.tags},
         "survivors": survivors, "payloads": payloads, "sizes": sizes,
-        "total": total, "seconds": dt, "txns_per_s": total / dt, **lat,
-        "landed_stamps": list(verify.landed_stamps),
+        "total": total, "seconds": dt, "boot_seconds": boot_s,
+        "txns_per_s": total / dt, **lat,
+        "landed_stamps": None if proc else list(verify.landed_stamps),
+        **({"landed_stamps_note": "the verify tile's stamps stay in its child "
+            "process"} if proc else {}),
+        "runtime": "process" if proc else "thread",
+        **({"children": children} if proc else {}),
+        **({"profile": prof} if profile else {}),
         "stem": {"mode": stem or "python", "tiles": _stem_report(counters)},
         **({"wire": _wire_report(fr, counters, marks, t0)} if front == "wire" else {}),
     }
@@ -600,8 +651,8 @@ def leader(
             return (poh.slot > last
                     and mstore.counter("completed_slots") >= last + 1)
 
-        t0, dt, counters = _run(topo, fr, idle_sleep_s, max_lanes, done, tiles,
-                                "leader")
+        t0, dt, counters, _boot_s = _run(topo, fr, idle_sleep_s, max_lanes, done,
+                                         tiles, "leader")
         lat = {}
         for i, m in enumerate(msinks):
             lat.update(_percentiles(m, f"e2e_us_bank{i}_poh", f"e2e_sink{i}"))

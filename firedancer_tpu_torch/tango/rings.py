@@ -1,18 +1,22 @@
 """Python bindings for the port's native tango layer (fdt_tango.c).
 
-A copy of firedancer_tpu/tango/rings.py, trimmed to what the thread
-runtime needs: `Workspace`, `MCache`, `DCache`, `FSeq`, `CNC`, `TCache`,
-`cr_avail`, the wrap-safe `seq_*` helpers, the rejoin helpers, the native
-`trace_*` helpers, the native stem (`StemSpec`, `Stem`, the `STEM_*`
-ids) and the named workspace's attach surface (`publish_directory`,
-`attach`).  The library is built from the port's own copies of
-fdt_tango.c, fdt_sha512.c, fdt_sha256.c, fdt_trace.c, fdt_pack.c,
-fdt_bank.c, fdt_stem.c, fdt_poh.c, fdt_shred.c and fdt_net.c
-(tango/native/) by utils/cbuild.py into the git-ignored _build/, at first
-use, and loaded with ctypes.CDLL, so every call releases the GIL; `_load`
-injects the SHA-512 and SHA-256 tables and the pack cost model's
-constants into this library's own statics.  The stem's ABI digest and the
-process runtime are not ported yet.
+A copy of firedancer_tpu/tango/rings.py, trimmed to what the thread and
+process runtimes need: `Workspace`, `WkspArena` (a tile's named
+sub-allocator, with its name table in shared memory, so a process-runtime
+child allocates its state and the parent reads it by name), `MCache`,
+`DCache`, `FSeq`, `CNC`, `TCache`, `cr_avail`, the wrap-safe `seq_*`
+helpers, the rejoin helpers, the native `trace_*` helpers, the native stem
+(`StemSpec`, `Stem`, the `STEM_*` ids), the named workspace's attach
+surface (`publish_directory`, `attach`) and the version-handshake digest
+(`abi_components`, `digest_of`, `abi_digest`).  The library is built
+from the port's own copies of fdt_tango.c, fdt_sha512.c, fdt_sha256.c,
+fdt_trace.c, fdt_pack.c, fdt_bank.c, fdt_stem.c, fdt_poh.c, fdt_shred.c
+and fdt_net.c (tango/native/) by utils/cbuild.py into the git-ignored
+_build/, at first use, and loaded with ctypes.CDLL, so every call
+releases the GIL; `_load` injects the SHA-512 and SHA-256 tables and the
+pack cost model's constants into this library's own statics.  The
+shm-backed dcache producer cursor (`DCache.bind_cursor`), which only a
+restarted producer child needs, waits for the supervisor.
 
 Objects live in caller-provided buffers: a numpy array for in-process
 topologies, or an mmap of a /dev/shm file (`Workspace(name=...)`, under the
@@ -78,13 +82,22 @@ def _bind(lib, sigs: dict) -> None:
         fn.argtypes = args
 
 
+#: set by _load(): path of the loaded library and the ctypes sigs table —
+#: the Python-side inputs to the version-handshake digest (abi_digest)
+_LIB_PATH: str | None = None
+_LIB_SIGS: dict | None = None
+
+
 def _load() -> ct.CDLL:
-    lib = ct.CDLL(str(cbuild.build("fdt_tango", _NATIVE_SOURCES)))
+    global _LIB_PATH, _LIB_SIGS
+    so = cbuild.build("fdt_tango", _NATIVE_SOURCES)
+    _LIB_PATH = str(so)
+    lib = ct.CDLL(_LIB_PATH)
     u64, u32, u16, i32, i64, vp = (
         ct.c_uint64, ct.c_uint32, ct.c_uint16, ct.c_int, ct.c_int64,
         ct.c_void_p,
     )
-    _bind(lib, {
+    sigs = {
         "fdt_mcache_align": (u64, []),
         "fdt_mcache_footprint": (u64, [u64]),
         "fdt_mcache_new": (i32, [vp, u64, u64]),
@@ -195,7 +208,9 @@ def _load() -> ct.CDLL:
         "fdt_net_tx": (i64, [vp, vp, vp, i64, vp]),
         "fdt_net_rx": (i64, [vp, vp, i64, i64, u64, vp]),
         "fdt_net_route_put": (None, [vp, u32, i64]),
-    })
+    }
+    _bind(lib, sigs)
+    _LIB_SIGS = sigs
     # the SHA-512 constant tables are globals of THIS library (a second
     # copy of the ring library in the process keeps its own): inject them
     k = np.array(K64, dtype=np.uint64)
@@ -399,14 +414,137 @@ class Workspace:
             self._mm = None
 
     def unlink(self) -> None:
-        """Close, and remove the workspace file with its directory."""
+        """Close, and remove the workspace file with its directory and its
+        tiles' error sidecars."""
         self.close()
         if self.name is not None:
+            import glob
+
             for path in (self._path, self._dir_path(), self._dir_path() + ".tmp"):
                 try:
                     os.unlink(path)
                 except FileNotFoundError:
                     pass
+            # per-tile sidecars (a process-runtime child's crash report)
+            # share the workspace's prefix; a close never leaves them
+            for path in glob.glob(f"{SHM_PREFIX}{self.name}.err_*"):
+                try:
+                    os.unlink(path)
+                except FileNotFoundError:
+                    pass
+
+
+class WkspArena:
+    """A tile-private named sub-allocator INSIDE a workspace region,
+    with its name table in the shared memory itself.
+
+    The process-per-tile runtime needs tiles to allocate observable
+    state (dedup's tcache, sink sig logs) from a CHILD process, but an
+    attached Workspace cannot allocate (two children bumping the same
+    host-side cursor would hand out overlapping regions).  Each tile
+    instead gets one arena region, pre-sized by the topology from
+    Tile.wksp_footprint(), and carves it with this allocator.  The
+    name -> (offset, footprint) table lives in the region's header —
+    single writer (the owning tile), torn-read tolerant — so the
+    parent, monitors, and tests can resolve a tile's allocations by
+    name without replaying the tile's allocation order.
+
+    Same contracts as Workspace.alloc: idempotent by name with the
+    footprint checked, so a restarted incarnation re-running on_boot
+    REJOINS its regions (what lets dedup's tag cache survive a child
+    kill) instead of leaking copies.
+    """
+
+    MAGIC = 0x46445441414E4552  # "FDTAANER"
+    NAME_BYTES = 40
+    _ENT_WORDS = 7  # 5 name words + off + fp
+    _HDR_WORDS = 4  # magic, capacity, count, data_off(words)
+
+    def __init__(
+        self, mem_u8: np.ndarray, max_entries: int = 64,
+        join: bool = False,
+    ):
+        """join=False: the OWNING tile — initialize the header if this
+        is the region's first use (a restarted owner finds the magic
+        and rejoins).  join=True: a READER (parent/monitor) — never
+        write the header; raises if the owner has not initialized yet
+        (a reader that auto-initialized would race the owner's header
+        stores)."""
+        self.mem = mem_u8
+        self.words = mem_u8[: (len(mem_u8) // 8) * 8].view(np.uint64)
+        if int(self.words[0]) == self.MAGIC:
+            # live arena (attach, or a restarted owner rejoining)
+            self.capacity = int(self.words[1])
+        elif join:
+            raise RuntimeError(
+                "arena not initialized yet (owning tile has not booted)"
+            )
+        else:
+            self.capacity = max_entries
+            self.words[1] = max_entries
+            self.words[2] = 0
+            self.words[3] = self._HDR_WORDS + max_entries * self._ENT_WORDS
+            # magic last: an attacher that sees it sees a full header
+            self.words[0] = np.uint64(self.MAGIC)
+        self._data0 = int(self.words[3]) * 8
+
+    @classmethod
+    def footprint(cls, data_bytes: int, max_entries: int = 64) -> int:
+        """Region size for `data_bytes` of payload: header + name table
+        + payload + per-alloc alignment slack."""
+        hdr = (cls._HDR_WORDS + max_entries * cls._ENT_WORDS) * 8
+        return hdr + int(data_bytes) + 128 * max_entries
+
+    def _entry(self, i: int) -> tuple[str, int, int]:
+        base = self._HDR_WORDS + i * self._ENT_WORDS
+        raw = self.words[base : base + 5].tobytes()
+        name = raw.rstrip(b"\0").decode("utf-8", "replace")
+        return name, int(self.words[base + 5]), int(self.words[base + 6])
+
+    def names(self) -> list[str]:
+        return [self._entry(i)[0] for i in range(int(self.words[2]))]
+
+    def alloc(self, name: str, footprint: int, align: int = 128) -> np.ndarray:
+        enc = name.encode()
+        if len(enc) > self.NAME_BYTES:
+            raise ValueError(f"arena alloc name too long: {name!r}")
+        n = int(self.words[2])
+        off_end = self._data0
+        for i in range(n):
+            nm, off, fp = self._entry(i)
+            if nm == name:
+                if fp != footprint:
+                    raise ValueError(
+                        f"arena realloc of {name!r} with footprint "
+                        f"{footprint} != existing {fp}"
+                    )
+                return self.mem[off : off + fp]
+            off_end = max(off_end, off + fp)
+        if n >= self.capacity:
+            raise MemoryError(f"arena name table full allocating {name!r}")
+        off = (off_end + align - 1) & ~(align - 1)
+        if off + footprint > len(self.mem):
+            raise MemoryError(
+                f"arena full allocating {name!r} ({footprint}B; "
+                f"did the tile's wksp_footprint() under-report?)"
+            )
+        base = self._HDR_WORDS + n * self._ENT_WORDS
+        self.words[base : base + 5] = np.frombuffer(
+            enc.ljust(self.NAME_BYTES, b"\0"), np.uint64
+        )
+        self.words[base + 5] = off
+        self.words[base + 6] = footprint
+        # count last (release order): a reader never sees a half-written
+        # entry as live
+        self.words[2] = np.uint64(n + 1)
+        return self.mem[off : off + footprint]
+
+    def view(self, name: str) -> np.ndarray:
+        for i in range(int(self.words[2])):
+            nm, off, fp = self._entry(i)
+            if nm == name:
+                return self.mem[off : off + fp]
+        raise KeyError(name)
 
 
 # ---------------------------------------------------------------------------
@@ -1167,3 +1305,84 @@ class Stem:
     @property
     def counters(self) -> np.ndarray:
         return self._ctrs
+
+
+# ---------------------------------------------------------------------------
+# version-handshake digest
+#
+# A mixed-version topology is ring-safe iff both incarnations agree on
+# every contract the /dev/shm rings encode: the native symbol set (the
+# .so's ABI sidecar), the ctypes sigs table, the ring/stem layout
+# constants, the stem cfg-word map, and the emit-body signatures.
+# abi_digest() folds all of that into one u64 (never 0 — 0 is the
+# uninitialized-word sentinel); disco/handshake.py stores it in a
+# per-workspace shm word at build() and every joining incarnation
+# compares before binding a single ring.  Lazy + cached: the cfg-word
+# constants below are module-level and must exist before collection.
+
+_ABI_CACHE: dict | None = None
+
+#: module-global int constants folded into the digest's layout/cfg-word
+#: components — any rename, renumber, add, or remove changes the digest
+_ABI_CONST_PREFIXES = (
+    "CHUNK_SZ", "CTL_", "STEM_", "PACK_SCHED_WORDS",
+    "_STEM_", "_SC_", "_SI", "_SO", "_TR_",
+)
+
+#: the emit-body surface: the native calls a handler body may make
+#: mid-burst (fdt_stem.h) — split out of "sigs" so the component diff
+#: in a refusal incident names the half that moved
+_ABI_EMIT_SYMBOLS = ("fdt_stem_out_emit", "fdt_stem_out_emit_at",
+                     "fdt_stem_out_cr")
+
+
+def _ct_name(t) -> str:
+    return "None" if t is None else getattr(t, "__name__", str(t))
+
+
+def abi_components() -> dict:
+    """The handshake digest's input document, canonical and
+    JSON-stable.  Split by component so tests (and refused-join
+    incident detail) can name WHICH contract moved."""
+    global _ABI_CACHE
+    if _ABI_CACHE is not None:
+        return _ABI_CACHE
+    if _LIB_SIGS is None:
+        _lib.fdt_trace_words  # the first use builds and loads the library
+    side = cbuild.read_sidecar(Path(_LIB_PATH))
+    c_syms = (side or {}).get("symbols")
+    if c_syms is None:
+        # a library without its sidecar: parse this tree's sources
+        c_syms = cbuild.abi_symbols(_NATIVE_SOURCES)
+    sigs = {
+        name: [_ct_name(res), [_ct_name(a) for a in args]]
+        for name, (res, args) in (_LIB_SIGS or {}).items()
+    }
+    consts = {
+        k: v
+        for k, v in sorted(globals().items())
+        if isinstance(v, int) and k.startswith(_ABI_CONST_PREFIXES)
+    }
+    _ABI_CACHE = {
+        "c": list(c_syms),
+        "sigs": sigs,
+        "cfg_words": consts,
+        "emit": {k: sigs[k] for k in _ABI_EMIT_SYMBOLS if k in sigs},
+    }
+    return _ABI_CACHE
+
+
+def digest_of(components: dict) -> int:
+    """Fold an abi_components()-shaped document into the nonzero u64
+    handshake word value (exposed separately so tests can digest
+    mutated documents)."""
+    import hashlib
+    import json as _json
+
+    blob = _json.dumps(components, sort_keys=True).encode()
+    return int.from_bytes(hashlib.sha256(blob).digest()[:8], "big") | 1
+
+
+def abi_digest() -> int:
+    """This incarnation's version-handshake word (see abi_components)."""
+    return digest_of(abi_components())

@@ -57,6 +57,10 @@ class MetricTile(Tile):
 
     name = "metric"
     schema = MetricsSchema(counters=("scrapes", "bad_requests"))
+    #: observer tile: closes over the topology's registry callable, so
+    #: it stays a parent THREAD under the process runtime (it only
+    #: reads shared memory — no isolation is lost)
+    proc_safe = False
 
     def __init__(
         self,

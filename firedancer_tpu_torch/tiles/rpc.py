@@ -29,6 +29,9 @@ VERSION = "firedancer-tpu/0.3"
 class RpcTile(Tile):
     name = "rpc"
     schema = MetricsSchema(counters=("requests", "bad_requests"))
+    #: observer tile: its counter/slot callables close over parent-side
+    #: topology state — stays a parent THREAD under the process runtime
+    proc_safe = False
 
     def __init__(
         self,

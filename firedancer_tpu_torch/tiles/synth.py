@@ -3,6 +3,11 @@
 A copy of firedancer_tpu/tiles/synth.py; the pool is signed by the
 port's ops/ed25519/hostpath.py.  The duplicate-storm fault injection (and
 its flood_dup_txns counter) waits for the port of the fault injector.
+Port-only: the frag budget lives in a u64 word of a topology-wide shared
+region (`release_region`), set to the constructor's `total` at boot and
+read at every loop, so a harness releases frags by writing that word,
+also when the tile runs in a child process where the parent's copy of
+`total` is never seen.
 
 Reference model: src/disco/verify/verify_synth_load.c (synthetic
 sig-verify load with modeled failure rates) and the fddev bench txn
@@ -83,6 +88,10 @@ def make_txn_pool(
     return rows, szs, good
 
 
+#: a release word's "no budget": publish until halted
+UNBOUNDED = (1 << 64) - 1
+
+
 class SynthTile(Tile):
     """Streams a pre-signed txn pool; sig field = pool index tag."""
 
@@ -98,8 +107,10 @@ class SynthTile(Tile):
         name: str = "synth",
     ):
         """Publish each pool entry `repeat` times (back to back batches),
-        up to `total` frags overall (None = until halted)."""
+        up to `total` frags overall (None = until halted): the word of the
+        shared region `release_region` once booted."""
         self.name = name
+        self._budget = None
         self.rows = rows
         self.szs = szs
         self.repeat = repeat
@@ -116,7 +127,22 @@ class SynthTile(Tile):
             np.uint64(1) << (np.uint64(8) * np.arange(8, dtype=np.uint64))
         )
 
+    @property
+    def release_region(self) -> str:
+        """The shared region whose u64 word is the synth's budget
+        (UNBOUNDED: until halted)."""
+        return f"{self.name}_release"
+
+    def shared_wksp_footprints(self) -> dict[str, int]:
+        return {self.release_region: 8}
+
+    def on_boot(self, ctx: MuxCtx) -> None:
+        self._budget = ctx.shared(self.release_region, 8).view(np.uint64)
+        self._budget[0] = UNBOUNDED if self.total is None else self.total
+
     def after_credit(self, ctx: MuxCtx) -> None:
+        word = int(self._budget[0])
+        self.total = None if word == UNBOUNDED else word
         budget = ctx.credits
         if budget <= 0:
             return

@@ -71,7 +71,7 @@ def test_port_has_files():
                  "flamenco/vm.py", "ballet/murmur3.py", "ballet/sbpf.py",
                  "ballet/secp256k1.py", "ballet/http.py", "tiles/metric.py",
                  "tiles/rpc.py", "utils/log.py", "app/config.py", "app/fdtctl.py",
-                 "app/monitor.py"):
+                 "app/monitor.py", "disco/profile.py", "disco/handshake.py"):
         assert f"firedancer_tpu_torch/{want}" in rel
 
 

@@ -171,15 +171,20 @@ def test_on_crash_drops_in_flight_state():
 
 
 def test_unported_options_raise():
+    """The process runtime and the profiler are ported and taken; the
+    flight recorder, elastic shards and device universes still raise."""
     with pytest.raises(NotImplementedError):
         V.VerifyTile(device="off", device_universe=[0, 1])
-    with pytest.raises(NotImplementedError):
-        Topology(runtime="process")
+    assert Topology(runtime="process").runtime == "process"
+    with pytest.raises(ValueError, match="tile runtime"):
+        Topology(runtime="bogus")
     with pytest.raises(ValueError, match="stem mode"):
         Topology(stem="bogus")
-    for fn in ("enable_profile", "enable_flight"):
-        with pytest.raises(NotImplementedError):
-            getattr(Topology(), fn)()
+    topo = Topology()
+    topo.enable_profile()
+    assert topo.profile is True
+    with pytest.raises(NotImplementedError):
+        Topology().enable_flight()
     with pytest.raises(NotImplementedError):
         Topology().declare_shards("verify", ["verify"])
     with pytest.raises(ValueError, match="stem mode"):
